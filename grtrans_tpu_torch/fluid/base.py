@@ -1,0 +1,128 @@
+"""Fluid-model framework: sampled state, emissivity inputs, source
+parameters and the model registry (reference fluid.f90:49-75, 163-584).
+
+A model is an object with `vals(x, k, a) -> FluidVars` and
+`convert(fv, sp) -> EmisInputs`, both over (npix, npts) tensors.  Only
+FFJET is registered so far."""
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from grtrans_tpu_torch import constants as pc
+
+CONST, TAIL = 0, 1
+
+
+class FluidVars(NamedTuple):
+    """Fluid state sampled along rays; tensors (npix, npts[, 4])."""
+    rho: torch.Tensor     # density-like primary variable (model units)
+    p: torch.Tensor       # pressure / temperature-like variable
+    bmag: torch.Tensor    # field strength (model units)
+    u: torch.Tensor       # four-velocity (BL, contravariant)
+    b: torch.Tensor       # magnetic four-vector (BL)
+    rho2: torch.Tensor    # secondary density (nonthermal electrons)
+
+
+class EmisInputs(NamedTuple):
+    """cgs inputs to the emissivity functions."""
+    ncgs: torch.Tensor
+    tcgs: torch.Tensor
+    bcgs: torch.Tensor
+    ncgsnth: torch.Tensor
+
+
+@dataclass
+class SourceParams:
+    """Reference source_params (fluid.f90:69-75)."""
+    nfac: float = 1.0
+    mbh: float = 10.0
+    mdot: float = 1e15
+    mu: float = 0.25
+    gmin: float = 100.0
+    gmax: float = 1e5
+    p1: float = 3.5
+    p2: float = 3.5
+    jetalpha: float = 0.02
+    stype: int = CONST
+    sigcut: float = 1e10
+    otherargs: Optional[tuple] = None
+    coefindx: Optional[tuple] = None
+
+
+def calc_gmin(p, thetae, eta):
+    """Nonthermal gamma_min and number fraction for the stype='tail'
+    model (reference calcgmin.f90).  Returns (gmin, nfrac)."""
+    acenter = 0.5668090982352612
+    anormal = 0.52624783
+    azero = 3.0 / math.sqrt(2.0)
+    astwo = math.log(math.sqrt(2.0))
+    if p == 3.5:
+        lin_cons, lin_coeff, lin_power = (16.0797900684, -13.5593749125,
+                                          0.276589155355)
+        inv_cons, inv_coeff, inv_power = (0.722506578136, 151.597731214,
+                                          6.53997654139)
+        inv_sin_coeff = inv_sin_freq = inv_sin_delay = 0.0
+        lin_sin_coeff = lin_sin_freq = lin_sin_delay = 0.121815691108
+    else:
+        lin_cons, lin_coeff, lin_power = 21.38307186, -16.7811712, 0.15128533
+        inv_cons, inv_coeff, inv_power = 0.74798712, 0.62609462, 0.81567379
+        inv_sin_coeff, inv_sin_freq, inv_sin_delay = (0.00638946501,
+                                                      -16.8034428,
+                                                      3.72208398)
+        lin_sin_coeff = lin_sin_freq = lin_sin_delay = 0.0
+    lin_const = (lin_cons + lin_coeff * eta ** lin_power
+                 + lin_sin_coeff * math.sin(eta * lin_sin_freq
+                                            + lin_sin_delay))
+    inv_const = (inv_cons + inv_coeff * eta ** inv_power
+                 + inv_sin_coeff * math.sin(eta * inv_sin_freq
+                                            + inv_sin_delay))
+    gmin = (thetae * lin_const + inv_const).clamp_min(1.0)
+    atheta = thetae * azero * torch.exp(
+        astwo * torch.tanh(anormal * torch.log(thetae / acenter)))
+    nfrac = eta * atheta * (p - 2.0) / (p - 1.0) * gmin ** (p - 2.0)
+    return gmin, nfrac
+
+
+def apply_source_params(ei, sp):
+    """Apply the stype gamma_min model (reference assign_source_params,
+    fluid.f90:1641-1678).  Returns (ei, gmin): CONST passes ei through
+    with the scalar sp.gmin; TAIL replaces ncgsnth by the thermal tail
+    and returns a per-sample gmin."""
+    if sp.stype != TAIL:
+        return ei, sp.gmin
+    thetae = sp.mu * pc.k * ei.tcgs / (pc.m * pc.c2)
+    gmin, nfrac = calc_gmin(sp.p2, thetae, sp.jetalpha)
+    over = gmin > sp.gmax
+    gmin_used = torch.where(over, sp.gmax / 2.0, gmin)
+    # gmin clamped from above: fold the lost tail into the density
+    factor = torch.where(
+        over, (sp.gmax / 2.0 / torch.where(over, gmin, 1.0))
+        ** (sp.p2 - 2.0), 1.0)
+    ncgsnth = factor * torch.where(
+        nfrac > 0.0, nfrac * ei.ncgs * gmin_used ** (1.0 - sp.p2), 0.0)
+    return ei._replace(ncgsnth=ncgsnth), gmin_used
+
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register(name):
+    """Register a model factory `f(device=..., **fargs)` under `name`."""
+    def deco(factory):
+        _REGISTRY[name.upper()] = factory
+        return factory
+    return deco
+
+
+def load_fluid_model(name, *, device, **kwargs):
+    """Instantiate a fluid model by fname on `device`
+    (fluid.f90:163-243)."""
+    from grtrans_tpu_torch.fluid import ffjet  # noqa: F401  (registers)
+    factory = _REGISTRY.get(name.upper())
+    if factory is None:
+        raise NotImplementedError(
+            f"fluid model {name!r} is not ported; have {sorted(_REGISTRY)}")
+    return factory(device=device, **kwargs)

@@ -1,0 +1,150 @@
+"""Packed-row table gather fused with its corner combine.
+
+    out[n, f] = sum_{c < nc} w[n, c] * table[idx[n], c * nf + f]
+
+Hopper counterpart of the Pallas kernel grtrans_tpu/ops/pallas_gather.py
+(`vmem_row_gather`) plus its epilogue `quad_combine`.  `quad_gather`
+takes CPU tensors to `quad_gather_ref`, the plain PyTorch version, and
+CUDA tensors to the hand-written kernel in csrc/quad_gather.cu; there is
+no fallback between the two.
+
+The kernel is compiled with nvcc on first use into
+grtrans_tpu_torch/_build/, keyed by a hash of its source, and bound with
+ctypes.  `quad_gather.launches` counts kernel launches.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "quad_gather.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+
+_lib = None
+_err_flags = {}
+
+
+def quad_gather_ref(table, idx, w, nc, nf):
+    """Plain PyTorch version: (table[idx].view(N, nc, nf) * w).sum(corners)."""
+    n = idx.shape[0]
+    return (table[idx.long()].view(n, nc, nf) * w[..., None]).sum(-2)
+
+
+def quad_gather(table, idx, w, nc, nf):
+    """table (NS, nc*nf) float32/float64; idx (N,) int32; w (N, nc) of the
+    table's dtype; all contiguous on one device.  Returns (N, nf)."""
+    if table.dim() != 2 or table.shape[1] != nc * nf:
+        raise ValueError(f"table must be (NS, {nc * nf}), got "
+                         f"{tuple(table.shape)}")
+    if table.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"table dtype {table.dtype} not supported")
+    if idx.dim() != 1 or idx.dtype != torch.int32:
+        raise TypeError("idx must be a 1-D int32 tensor")
+    if w.shape != (idx.shape[0], nc) or w.dtype != table.dtype:
+        raise ValueError(f"w must be ({idx.shape[0]}, {nc}) {table.dtype}, "
+                         f"got {tuple(w.shape)} {w.dtype}")
+    if not (table.device == idx.device == w.device):
+        raise ValueError("table, idx and w must be on one device")
+    if not (table.is_contiguous() and idx.is_contiguous()
+            and w.is_contiguous()):
+        raise ValueError("table, idx and w must be contiguous")
+    if table.device.type == "cpu":
+        return quad_gather_ref(table, idx, w, nc, nf)
+    if table.device.type != "cuda":
+        raise NotImplementedError(f"no quad_gather for {table.device}")
+    return _launch(table, idx, w, nc, nf)
+
+
+quad_gather.launches = 0
+
+
+def error_flag(device):
+    """The int32 device flag the kernel sets on an out-of-range index."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    flag = _err_flags.get(device)
+    if flag is None:
+        flag = _err_flags[device] = torch.zeros(1, dtype=torch.int32,
+                                                device=device)
+    return flag
+
+
+def _launch(table, idx, w, nc, nf):
+    lib = load_library()
+    n = idx.shape[0]
+    out = torch.empty((n, nf), dtype=table.dtype, device=table.device)
+    err = error_flag(table.device)
+    fn = (lib.quad_gather_f64 if table.dtype == torch.float64
+          else lib.quad_gather_f32)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                out.data_ptr(), err.data_ptr(), n, table.shape[0], nc, nf,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"quad_gather launch failed: CUDA error {rc}")
+    quad_gather.launches += 1
+    return out
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None:
+        path = Path(CUDA_HOME) / "bin" / "nvcc"
+        if path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path():
+    """Path of the compiled kernel library for the current source."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libquad_gather_{digest}.so"
+
+
+def build():
+    """Compile csrc/quad_gather.cu for sm_90a unless the library for this
+    source exists.  Returns the library path; the compiler's output
+    (ptxas register and spill report) is kept beside it as a .log."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load_library():
+    """Build (if needed) and load the kernel library with its ctypes
+    signatures."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr = ctypes.c_void_p
+        for name in ("quad_gather_f32", "quad_gather_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

@@ -1,0 +1,97 @@
+"""Parity of the port's packed-row gather (grtrans_tpu_torch.ops.quad_gather)
+with the Pallas kernel it replaces, run in interpret mode, and with the
+XLA gather + combine of grtrans_tpu.  The CUDA kernel behind the wrapper
+is held against the plain version on the card in test_torch_cuda.py.
+
+Tolerances: rows exact; combined values max|d| <= tol * max|ref| with
+tol 1e-14 (float64) / 1e-6 (float32) -- the corner sums may round in
+another order.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from grtrans_tpu.emis import polsynchpl as jpl
+from grtrans_tpu.ops.pallas_gather import (quad_combine, vmem_row_gather,
+                                           xla_quad_gather)
+from grtrans_tpu_torch.emis import polsynchpl as tpl
+from grtrans_tpu_torch.ops.quad_gather import quad_gather, quad_gather_ref
+
+NS, NC, NF, N = 16384, 4, 9, 4096
+TOL = {np.float32: 1e-6, np.float64: 1e-14}
+
+
+def _inputs(dtype, n=N, nc=NC, nf=NF, ns=NS, seed=0):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((ns, nc * nf)).astype(dtype)
+    idx = rng.integers(0, ns, n).astype(np.int32)
+    w = rng.uniform(0.0, 1.0, (n, nc)).astype(dtype)
+    return table, idx, w
+
+
+def _close(a, b, tol):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= tol * np.abs(b).max()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_rows_match_pallas_interpret(dtype):
+    table, idx, w = _inputs(dtype)
+    rows_j = np.asarray(vmem_row_gather(jnp.asarray(table), jnp.asarray(idx),
+                                        interpret=True))
+    ones = torch.ones((N, 1), dtype=torch.from_numpy(table).dtype)
+    rows_t = quad_gather_ref(torch.from_numpy(table), torch.from_numpy(idx),
+                             ones, 1, NC * NF)
+    np.testing.assert_array_equal(rows_t.numpy(), rows_j)
+    np.testing.assert_array_equal(rows_j, table[idx])
+
+    out_t = quad_gather(torch.from_numpy(table), torch.from_numpy(idx),
+                        torch.from_numpy(w), NC, NF).numpy()
+    _close(out_t, quad_combine(jnp.asarray(rows_j), jnp.asarray(w), NF),
+           TOL[dtype])
+    _close(out_t, xla_quad_gather(jnp.asarray(table), jnp.asarray(idx),
+                                  jnp.asarray(w), NF), TOL[dtype])
+
+
+def test_ragged_n_matches_numpy():
+    table, idx, w = _inputs(np.float64, n=4099, seed=1)
+    out = quad_gather(torch.from_numpy(table), torch.from_numpy(idx),
+                      torch.from_numpy(w), NC, NF).numpy()
+    ref = np.einsum("nc,ncf->nf", w, table[idx].reshape(-1, NC, NF))
+    _close(out, ref, 1e-14)
+
+
+def test_g_all_shape_matches_jax_blend():
+    """The _g_all use: C=2 bracketing rows x nf=6 tables."""
+    table, idx, _ = _inputs(np.float64, n=N, nc=2, nf=6, ns=201, seed=2)
+    wx = np.random.default_rng(3).uniform(0.0, 1.0, N)
+    out = quad_gather(torch.from_numpy(table), torch.from_numpy(idx),
+                      torch.from_numpy(np.stack([1 - wx, wx], -1)), 2, 6)
+    q = jnp.asarray(table)[jnp.asarray(idx)]
+    ref = q[:, :6] * (1 - wx)[:, None] + q[:, 6:] * wx[:, None]
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("p", [3.5, 2.2])
+def test_g_all_matches_jax(p):
+    x = 10.0 ** np.random.default_rng(4).uniform(-9.0, 4.0, (32, 20))
+    ref = np.asarray(jpl._g_all(jnp.asarray(x), p))
+    out = tpl._g_all(torch.from_numpy(x), p).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=0.0)
+
+
+def test_wrapper_rejects_bad_arguments():
+    table, idx, w = (torch.from_numpy(v) for v in _inputs(np.float64, n=8))
+    with pytest.raises(TypeError):
+        quad_gather(table, idx.long(), w, NC, NF)
+    with pytest.raises(ValueError):
+        quad_gather(table, idx, w.float(), NC, NF)
+    with pytest.raises(ValueError):
+        quad_gather(table, idx, w, 2, 6)
+    with pytest.raises(ValueError):
+        quad_gather(table[:, ::2], idx, w[:, :2], 2, 9)
+    with pytest.raises(NotImplementedError):
+        quad_gather(table.to("meta"), idx.to("meta"), w.to("meta"), NC, NF)
