@@ -4,18 +4,30 @@
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit; TF32 off;
-  2. build the hand-written kernel csrc/quad_gather.cu for sm_90a;
+  2. build the hand-written kernels of csrc/quad_gather.cu for sm_90a;
   3. hold the kernel against its plain PyTorch version on the card at the
-     main path's shapes (FFJET 4e6 queries x (16384, 36) table in f64 and
-     f32; the POLSYNCHPL cutoff table (201, 12)), check the out-of-range
-     flag, and time both with CUDA events;
+     main paths' shapes (FFJET 4e6 queries x (16384, 36) table in f64 and
+     f32; the POLSYNCHPL cutoff table (201, 12)) on uniformly random rows,
+     check the out-of-range flag, and time with CUDA events: the kernel
+     the wrapper picks, the generic kernel, the plain version and
+     embedding_bag (the one-call PyTorch yardstick), beside the bound
+     computed from the bytes the call must move;
   4. render the FFJET flagship (POLSYNCHPL, 100x100 pixels x 400 points,
      float64) on a synthetic dump at the real table size through
      grtrans_run(device="cuda"), with the launch count of every kernel
      reset just before and read just after; check the image and time two
-     warm renders and their stages;
+     warm renders and their stages; time the kernel once more on the
+     index stream of that frame (neighbouring points of a ray share rows);
   5. check the card's render against the port's CPU render (the path the
-     CPU tests hold against grtrans_tpu) at 16x16 x 64.
+     CPU tests hold against grtrans_tpu) at 16x16 x 64;
+  6. render the Sgr A* RIAF (SARIAF + HYBRIDTHPL, thermal plus power-law
+     synchrotron, lsoda integrator, 100x100 x 400 x 3 frequencies)
+     through Grtrans(...).run() on the card, launches counted the same
+     way; check shape, finiteness, brightness and polarization fraction;
+     time a warm run and read its peak memory;
+  7. the same configuration at 16x16 x 64 for each of the formal, lsoda,
+     delo and quadrature integrators, card against the port's CPU run:
+     the whole image from uout = 0.0025, Stokes I from the default uout.
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -37,6 +49,15 @@ FFJET_NX = 128                        # table (128^2, 4 x 9)
 REPS = 20
 KERNEL_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
 CPU_GPU_RTOL = 1e-8                   # whole-image rel L1, card vs CPU
+
+
+def riaf_kwargs(nn, iname):
+    """The Sgr A* RIAF: SARIAF with thermal + power-law synchrotron."""
+    return dict(fname="SARIAF", ename="HYBRIDTHPL", nvals=4, spin=0.9,
+                standard=1, nn=nn, mbh=4e6, mumin=0.5, mumax=0.5, nfreq=3,
+                fmin=1e11, fmax=1e12, iname=iname,
+                gridvals=(-15.0, 15.0, -15.0, 15.0),
+                fargs=dict(n0=4e7, t0=1.6e11, beta=10.0))
 
 
 def flagship_config(GrtransConfig, dfile, nn):
@@ -61,8 +82,74 @@ def cuda_ms(fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
+HBM_BYTES_PER_S = 3.35e12             # H100 SXM device memory rate
+# peak rates outside the tensor cores: float32 from the H100 data sheet,
+# float64 at half of it
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+
+
+def gather_bound_ms(n, ns, nc, nf, dtype):
+    """Least time the card could take for one quad_gather: each input
+    byte read once and each output byte written once over the memory
+    rate, against 2 nc nf operations a query over the peak rate."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = n * 4 + n * nc * size + n * nf * size + ns * nc * nf * size
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * n * nc * nf / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_gather(qg, name, table, idx, w, nc, nf):
+    """CUDA-event times of the plain version, the one-call PyTorch
+    yardstick (embedding_bag, used nowhere in the port), the generic
+    kernel and the kernel the wrapper picks, in the order plain, library,
+    generic, kernel, kernel, generic, library, plain.  Returns a dict of
+    mean times in ms plus the bound."""
+    n, ns = idx.shape[0], table.shape[0]
+    bag_idx = idx.long()[:, None] * nc + torch.arange(nc, device=idx.device)
+    bag_table = table.view(ns * nc, nf)
+
+    def plain():
+        return qg.quad_gather_ref(table, idx, w, nc, nf)
+
+    def library():
+        return torch.nn.functional.embedding_bag(
+            bag_idx, bag_table, per_sample_weights=w, mode="sum")
+
+    def generic():
+        return qg.quad_gather(table, idx, w, nc, nf, generic=True)
+
+    def kernel():
+        return qg.quad_gather(table, idx, w, nc, nf)
+
+    lib_err = (library() - plain()).abs().max().item()
+    gen_err = (generic() - plain()).abs().max().item()
+    order = [plain, library, generic, kernel, kernel, generic, library,
+             plain]
+    times = {}
+    for fn in order:
+        times.setdefault(fn.__name__, []).append(cuda_ms(fn))
+    bound, bound_by = gather_bound_ms(n, ns, nc, nf, table.dtype)
+    res = {k: sum(v) / len(v) for k, v in times.items()}
+    res.update(bound_ms=bound, bound_by=bound_by)
+    print(f"{name}: N={n} table=({ns}, {nc * nf}) {table.dtype}: kernel "
+          + "/".join(f"{t:.4f}" for t in times["kernel"])
+          + " ms, generic kernel "
+          + "/".join(f"{t:.4f}" for t in times["generic"])
+          + " ms, plain " + "/".join(f"{t:.4f}" for t in times["plain"])
+          + " ms, embedding_bag "
+          + "/".join(f"{t:.4f}" for t in times["library"])
+          + f" ms; bound {bound:.4f} ms by {bound_by} "
+          f"(share of bound {bound / res['kernel']:.3f}); "
+          f"max|embedding_bag - plain| {lib_err:.2e}, "
+          f"max|generic - plain| {gen_err:.2e}")
+    return res
+
+
 def check_kernel(qg, name, ns, nc, nf, dtype, dev):
-    """Kernel vs plain on the card; returns (max_abs_err, ms, plain_ms)."""
+    """Kernel vs plain on the card on uniformly random rows; returns
+    (max_abs_err, times dict of time_gather)."""
     rng = np.random.default_rng(SEED)
     table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
                             device=dev)
@@ -70,26 +157,25 @@ def check_kernel(qg, name, ns, nc, nf, dtype, dev):
                           device=dev)
     w = torch.as_tensor(rng.uniform(0.0, 1.0, (N_QUERIES, nc)), dtype=dtype,
                         device=dev)
+    err = compare_gather(qg, name, table, idx, w, nc, nf)
+    return err, time_gather(qg, name, table, idx, w, nc, nf)
+
+
+def compare_gather(qg, name, table, idx, w, nc, nf):
     out = qg.quad_gather(table, idx, w, nc, nf)
     ref = qg.quad_gather_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     scale = ref.abs().max().item()
-    if not err <= KERNEL_TOL[dtype] * scale:
+    tol = KERNEL_TOL[table.dtype]
+    print(f"{name}: max|kernel - plain| {err:.3e} (max|plain| {scale:.3e}, "
+          f"bar {tol:g} of it)")
+    if not err <= tol * scale:
         raise AssertionError(f"{name}: max|kernel - plain| {err} > "
-                             f"{KERNEL_TOL[dtype]} * {scale}")
-    if qg.error_flag(dev).item() != 0:
+                             f"{tol} * {scale}")
+    if qg.error_flag(table.device).item() != 0:
         raise AssertionError(f"{name}: out-of-range flag set")
-    # plain, kernel, kernel, plain
-    p1 = cuda_ms(lambda: qg.quad_gather_ref(table, idx, w, nc, nf))
-    k1 = cuda_ms(lambda: qg.quad_gather(table, idx, w, nc, nf))
-    k2 = cuda_ms(lambda: qg.quad_gather(table, idx, w, nc, nf))
-    p2 = cuda_ms(lambda: qg.quad_gather_ref(table, idx, w, nc, nf))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"{name}: N={N_QUERIES} table=({ns}, {nc * nf}) {dtype}: "
-          f"max_abs_err {err:.3e} (max|ref| {scale:.3e}); kernel "
-          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
-    return err, ms, plain_ms
+    return err
 
 
 def check_error_flag(qg, dev):
@@ -120,46 +206,20 @@ def main():
     run(torch.device("cuda", 0))
 
 
-def run(dev):
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+def ffjet_phases(dev, qg):
+    """Phases 4 and 5.  Returns (launches of the counted render, times of
+    the kernel on that frame's index stream)."""
     from grtrans_tpu_torch import convert, driver
     from grtrans_tpu_torch.config import GrtransConfig
-    from grtrans_tpu_torch.fluid.ffjet import load_ffjet_file
+    from grtrans_tpu_torch.fluid import ffjet
     from grtrans_tpu_torch.geodesics import camera, geokerr
-    from grtrans_tpu_torch.ops import quad_gather as qg
     from grtrans_tpu_torch.orchestrator import _source_params, grtrans_run
     from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"{torch.cuda.get_device_name(0)}")
-
-    # 2. build
-    t0 = time.perf_counter()
-    so = qg.build()
-    qg.load_library()
-    print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    # 3. kernel vs plain at the main path's shapes
-    err64, ms64, plain64 = check_kernel(qg, "ffjet f64", FFJET_NX ** 2, 4, 9,
-                                        torch.float64, dev)
-    check_kernel(qg, "ffjet f32", FFJET_NX ** 2, 4, 9, torch.float32, dev)
-    check_kernel(qg, "polsynchpl f64", 201, 2, 6, torch.float64, dev)
-    check_error_flag(qg, dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         dfile = Path(tmp) / "ffjet.bin"
         write_ffjet_dump(dfile, nx=FFJET_NX, seed=SEED)
-        grids, fields = load_ffjet_file(dfile)
+        grids, fields = ffjet.load_ffjet_file(dfile)
         cfg = flagship_config(GrtransConfig, dfile, NN)
         npix = NN[0] * NN[1]
         model = convert.ffjet_from_arrays(grids, fields, dev)
@@ -172,9 +232,9 @@ def run(dev):
         first_s = time.perf_counter() - t0
         launches = qg.quad_gather.launches
         if launches == 0:
-            raise AssertionError("main path never launched quad_gather")
+            raise AssertionError("FFJET path never launched quad_gather")
         if qg.error_flag(dev).item() != 0:
-            raise AssertionError("main path: out-of-range table index")
+            raise AssertionError("FFJET path: out-of-range table index")
         if tuple(ivals.shape) != (1, npix, 4) or \
                 not torch.isfinite(ivals).all():
             raise AssertionError(f"bad image {tuple(ivals.shape)}")
@@ -217,13 +277,33 @@ def run(dev):
         geo = stage("trace", lambda: geokerr.trace(
             0.998, 0.906, cam.alpha, cam.beta, cam.l, cam.q2, cam.sm,
             cam.u0, NN[2], uout=0.01, phi0=cfg.phi0))
-        fv = stage("ffjet_vals", lambda: model.vals(geo.x, geo.k, 0.998))
+        # keep the operands FFJet.vals hands the kernel: the frame's own
+        # index stream
+        frame_args = []
+        wrapper = ffjet.quad_gather
+
+        def keep(*args):
+            frame_args.append(args)
+            return wrapper(*args)
+
+        ffjet.quad_gather = keep
+        try:
+            fv = stage("ffjet_vals", lambda: model.vals(geo.x, geo.k, 0.998))
+        finally:
+            ffjet.quad_gather = wrapper
         ei = stage("convert", lambda: model.convert(fv, sp))
         stage("render_rays", lambda: driver.render_rays(
             geo, fv, ei, cfg.ename, [cfg.fmin], 0.906, cam.alpha, cam.beta,
             0.998, cfg.mbh, sp, iname="formal"))
         print("stages (ms): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in stages.items()))
+        table, idx, w, nc, nf = frame_args[0]
+        distinct = idx.unique().numel()
+        print(f"frame index stream: {idx.numel()} queries, {distinct} "
+              f"distinct rows of {table.shape[0]}")
+        compare_gather(qg, "ffjet f64, frame's rows", table, idx, w, nc, nf)
+        frame_times = time_gather(qg, "ffjet f64, frame's rows", table, idx,
+                                  w, nc, nf)
 
         # 5. the card against the port's CPU path on a small camera
         small = flagship_config(GrtransConfig, dfile, (16, 16, 64))
@@ -235,14 +315,127 @@ def run(dev):
               f"(bar {CPU_GPU_RTOL})")
         if not rel <= CPU_GPU_RTOL:
             raise AssertionError(f"card vs CPU rel L1 {rel}")
+    return launches, frame_times
 
+
+def riaf_phases(dev, qg, card):
+    """Phases 6 and 7.  Returns the launches of the counted render."""
+    from grtrans_tpu_torch.api import Grtrans
+
+    # 6. this slice's path through the API, counted
+    kw = riaf_kwargs(NN, "lsoda")
+    npix = NN[0] * NN[1]
+    qg.quad_gather.launches = 0
+    t0 = time.perf_counter()
+    x = Grtrans(**kw).run()
+    first_s = time.perf_counter() - t0
+    launches = qg.quad_gather.launches
+    if launches < kw["nfreq"]:
+        raise AssertionError(f"RIAF path launched quad_gather {launches} "
+                             f"times for {kw['nfreq']} frequencies")
+    if qg.error_flag(dev).item() != 0:
+        raise AssertionError("RIAF path: out-of-range table index")
+    if x.ivals.shape != (npix, 4, kw["nfreq"]) \
+            or not np.isfinite(x.ivals).all():
+        raise AssertionError(f"bad RIAF image {x.ivals.shape}")
+    imax = x.ivals[:, 0].max(0)
+    if not ((imax > 1e-5) & (imax < 1.0)).all():
+        raise AssertionError(f"RIAF I max {imax}: not of order 1e-3 cgs")
+    if not ((x.lp >= 0.0) & (x.lp <= 1.0)).all():
+        raise AssertionError(f"RIAF LP {x.lp} outside [0, 1]")
+    print(f"RIAF {NN[0]}x{NN[1]}x{NN[2]} x {kw['nfreq']} freqs, lsoda, f64: "
+          f"first {first_s * 1e3:.1f} ms, quad_gather launches {launches}; "
+          f"I max {imax}, spectrum {x.spec[0]}, LP {x.lp}, CP {x.cp}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = Grtrans(**kw).run()
+        warm.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rerun = np.abs(again.ivals - x.ivals).max()
+    print(f"RIAF warm run: {warm[0] * 1e3:.1f} ms, {warm[1] * 1e3:.1f} ms "
+          f"for {kw['nfreq']} cameras "
+          f"({kw['nfreq'] * npix / min(warm) / 1e6:.6f} Mrays/s); peak "
+          f"memory {peak / 2 ** 30:.3f} GiB; max|rerun - first| {rerun:.3e}"
+          f"; card {card}")
+
+    # 7. every integrator, the card against the port's CPU run.  The gate
+    # is on cameras that start at r = 400 (uout = 0.0025), where 64
+    # points resolve the flow.  From the default uout = 1e-4 a 64-point
+    # ray crosses r = 1e4 .. 400 in cells hundreds of M long and thousands
+    # of radians of Faraday rotation deep, which turn last-bit differences
+    # of exp, sin and cos into polarization angle: there Stokes I is held
+    # and the whole image is printed.
+    for iname in ("formal", "lsoda", "delo", "quadrature"):
+        for uout, whole_image in ((0.0025, True), (1e-4, False)):
+            small = dict(riaf_kwargs((16, 16, 64), iname), uout=uout)
+            gpu = Grtrans(**small).run().ivals
+            cpu = Grtrans(**small).run(device="cpu").ivals
+            rel = np.abs(gpu - cpu).sum() / np.abs(cpu).sum()
+            rel_i = np.abs(gpu[:, 0] - cpu[:, 0]).sum() \
+                / np.abs(cpu[:, 0]).sum()
+            print(f"RIAF 16x16x64 {iname} uout={uout:g}: card vs CPU rel "
+                  f"L1 {rel:.3e}, Stokes I alone {rel_i:.3e} (bar "
+                  f"{CPU_GPU_RTOL} on "
+                  f"{'the whole image' if whole_image else 'Stokes I'})")
+            if not (rel if whole_image else rel_i) <= CPU_GPU_RTOL:
+                raise AssertionError(
+                    f"RIAF {iname} uout={uout:g}: card vs CPU rel L1 {rel}, "
+                    f"Stokes I {rel_i}")
+    return launches
+
+
+def run(dev):
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from grtrans_tpu_torch.ops import quad_gather as qg
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    so = qg.build()
+    qg.load_library()
+    print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    # 3. kernel vs plain at the main paths' shapes
+    shapes = {}
+    for name, ns, nc, nf, dtype in (
+            ("ffjet f64", FFJET_NX ** 2, 4, 9, torch.float64),
+            ("ffjet f32", FFJET_NX ** 2, 4, 9, torch.float32),
+            ("polsynchpl f64", 201, 2, 6, torch.float64)):
+        err, times = check_kernel(qg, name, ns, nc, nf, dtype, dev)
+        shapes[name] = dict(times, max_abs_err=err)
+    check_error_flag(qg, dev)
+
+    ffjet_launches, frame_times = ffjet_phases(dev, qg)
+    shapes["ffjet f64, frame's rows"] = frame_times
+    riaf_launches = riaf_phases(dev, qg, card)
+
+    main = shapes["ffjet f64"]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "quad_gather", "route": "cuda",
         "source": "grtrans_tpu_torch/csrc/quad_gather.cu",
         "replaces": "grtrans_tpu/ops/pallas_gather.py:49",
-        "launches": launches, "max_abs_err": err64, "ms": ms64,
-        "plain_ms": plain64}]}))
+        "launches": ffjet_launches + riaf_launches,
+        "launches_by_path": {"ffjet_flagship": ffjet_launches,
+                             "riaf_hybrid_lsoda": riaf_launches},
+        "max_abs_err": main["max_abs_err"], "ms": main["kernel"],
+        "plain_ms": main["plain"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library"],
+        "generic_ms": main["generic"], "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

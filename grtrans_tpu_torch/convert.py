@@ -5,6 +5,7 @@ numpy values only; nothing here imports JAX."""
 import dataclasses
 
 from grtrans_tpu_torch.config import GrtransConfig
+from grtrans_tpu_torch.fluid.base import load_fluid_model
 from grtrans_tpu_torch.fluid.ffjet import FFJet
 
 
@@ -20,3 +21,11 @@ def ffjet_from_arrays(grids, fields, device, ntscl=2.0, nrscl=70.0):
     """FFJet model on `device` from the (grids, fields) numpy dicts that
     `load_ffjet_file` returns."""
     return FFJet(grids, fields, ntscl=ntscl, nrscl=nrscl, device=device)
+
+
+def analytic_from_fields(name, fields, device):
+    """The port's POWERLAW / SARIAF / TOY model on `device` from a dict of
+    the grtrans_tpu dataclass's fields (dataclasses.asdict of it)."""
+    if name.upper() not in ("POWERLAW", "SARIAF", "TOY"):
+        raise NotImplementedError(f"no analytic model {name!r} in the port")
+    return load_fluid_model(name, device=device, **fields)

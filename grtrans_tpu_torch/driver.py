@@ -1,15 +1,16 @@
 """The per-ray rendering pipeline, batched over all pixels (reference
 grtrans_driver.f90:57-465): fluid state -> comoving tetrad ->
 coefficients -> rotation and invariant scalings -> Stokes integration.
-Port of grtrans_tpu/driver.py for the observer-Stokes path (nvals=4,
-extra=0, standard=1) in float64."""
+Port of grtrans_tpu/driver.py for the observer-Stokes path (nvals 1 or
+4, extra=0, standard=1) in float64, for the synchrotron emissivities and
+every ported integrator."""
 
 import math
 
 import torch
 
 from grtrans_tpu_torch import constants as pc
-from grtrans_tpu_torch.emis import framework
+from grtrans_tpu_torch.emis import framework, polsynch
 from grtrans_tpu_torch.emis import polsynchpl as pl_mod
 from grtrans_tpu_torch.fluid.base import apply_source_params
 from grtrans_tpu_torch.geometry import tetrad
@@ -19,25 +20,43 @@ from grtrans_tpu_torch.integrate import solvers
 def calc_emissivity(ename, nu, ei, ang, cosne, sp, gmin=None):
     """(npix, npts, 11) coefficient block for emissivity `ename`
     (reference emis.f90:461-571).  gmin overrides sp.gmin."""
+    ename = ename.upper()
     if gmin is None:
         gmin = sp.gmin
-    if ename.upper() == "POLSYNCHPL":
+    if ename == "POLSYNCHTH":
+        return polsynch.polsynchth(nu, ei.ncgs, ei.bcgs, ei.tcgs, ang)
+    if ename == "SYMPOLTH":
+        return polsynch.sympolemisth(nu, ei.ncgs, ei.bcgs, ei.tcgs, ang)
+    if ename in ("SYNCHTHAV", "SYNCHTH"):
+        return polsynch.synchemis(nu, ei.ncgs, ei.bcgs, ei.tcgs)
+    if ename == "SYNCHTHAVNOABS":
+        return polsynch.synchemisnoabs(nu, ei.ncgs, ei.bcgs, ei.tcgs)
+    if ename == "POLSYNCHPL":
         return pl_mod.polsynchpl(nu, ei.ncgsnth, ei.bcgs, ang, sp.p1, gmin,
                                  sp.gmax)
+    if ename == "SYNCHPL":
+        return pl_mod.synchpl(nu, ei.ncgsnth, ei.bcgs, ang, sp.p1, gmin,
+                              sp.gmax)
+    if ename == "HYBRIDTHPL":
+        return (polsynch.polsynchth(nu, ei.ncgs, ei.bcgs, ei.tcgs, ang)
+                + pl_mod.polsynchpl(nu, ei.ncgsnth, ei.bcgs, ang, sp.p1,
+                                    gmin, sp.gmax))
     raise NotImplementedError(f"emissivity {ename!r} is not ported")
 
 
 def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
-                iname="formal", nvals=4, standard=1, extra=0):
+                iname="lsoda", nvals=4, standard=1, extra=0, debug=False):
     """Observed Stokes for one camera and a list of frequencies.
 
     geo: GeodesicBundle; fv: FluidVars; ei: EmisInputs (cgs); freqs:
     observed frequencies [Hz]; alpha, beta (npix,) tensors; mu0, a, mbh
     floats.  Returns (nfreq, npix, nvals)."""
-    if nvals != 4 or extra or standard != 1 or geo.x.shape[-2] == 1:
-        raise NotImplementedError(
-            "only the nvals=4, extra=0, standard=1 multi-point path is "
-            "ported")
+    for name, value, ported in (("extra", extra, 0), ("debug", debug, False),
+                                ("standard", standard, 1)):
+        if value != ported:
+            raise NotImplementedError(f"{name}={value!r} is not ported")
+    if geo.x.shape[-2] == 1:
+        raise NotImplementedError("single-point geodesics are not ported")
     r = geo.x[..., 1]
     th = geo.x[..., 2]
     # sanitize the fluid four-vectors before the tetrad projection
@@ -74,7 +93,8 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
         e = torch.where(ok[..., None], e, 0.0)
         e = torch.where(torch.isfinite(e), e, 0.0)
         j, K = framework.split_e(e)
-        j, K = framework.rotate_emis(j, K, s2xi, c2xi)
+        if nvals == 4:
+            j, K = framework.rotate_emis(j, K, s2xi, c2xi)
         j, K = framework.invariant_emis(j, K, g)
         # cgs per unit geometric path (grtrans_driver.f90:217,228)
         Iobs = solvers.observed_stokes(geo.lam, j * lbh, K * lbh,

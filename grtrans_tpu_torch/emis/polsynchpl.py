@@ -147,3 +147,12 @@ def polsynchpl(nu, n, b, theta, p, gmin, gmax):
     z = torch.zeros_like(ji)
     return torch.stack(torch.broadcast_tensors(
         ji, jq, z, jv, ai, aq, z, av, kstarq, z, kstarv), dim=-1)
+
+
+def synchpl(nu, n, b, theta, p, gmin, gmax):
+    """Unpolarized power-law synchrotron: j_I and a_I of polsynchpl, the
+    rest zero (polsynchemis.f90:633-698)."""
+    e = polsynchpl(nu, n, b, theta, p, gmin, gmax)
+    keep = torch.zeros(11, dtype=e.dtype, device=e.device)
+    keep[0] = keep[4] = 1.0
+    return torch.where(keep > 0, e, 0.0)

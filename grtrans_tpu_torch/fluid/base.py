@@ -2,8 +2,8 @@
 parameters and the model registry (reference fluid.f90:49-75, 163-584).
 
 A model is an object with `vals(x, k, a) -> FluidVars` and
-`convert(fv, sp) -> EmisInputs`, both over (npix, npts) tensors.  Only
-FFJET is registered so far."""
+`convert(fv, sp) -> EmisInputs`, both over (npix, npts) tensors.
+Registered: FFJET, POWERLAW, SARIAF, TOY."""
 
 import math
 from dataclasses import dataclass
@@ -50,6 +50,40 @@ class SourceParams:
     sigcut: float = 1e10
     otherargs: Optional[tuple] = None
     coefindx: Optional[tuple] = None
+
+
+def sigma_cut(bcgs, rhocgs, tempcgs, ncgs, sigcut):
+    """Zero out high-magnetization zones (fluid.f90:792-810).  Returns
+    (rhocgs, ncgs, tempcgs)."""
+    sigma = bcgs * bcgs / (rhocgs * 8.988e20 * 4.0 * math.pi).clamp_min(
+        1e-37)
+    hot = sigma >= sigcut
+    return (torch.where(hot, 0.0, rhocgs), torch.where(hot, 0.0, ncgs),
+            torch.where(hot, 1e9, tempcgs))
+
+
+def monika_e(rho, p, b, rlow, rhigh):
+    """Moscibrodzka+2016 R(beta) temperature-ratio prescription
+    (fluid.f90:874-892); beta = p / (b^2 / 2) in code units."""
+    beta = p / (b * b).clamp_min(1e-37) / 0.5
+    b2 = beta * beta
+    return torch.where(b > 0.0,
+                       rhigh * b2 / (1.0 + b2) + rlow / (1.0 + b2), rhigh)
+
+
+def toroidal_b(g_cov, u, bmag):
+    """Purely toroidal magnetic four-vector with |b| = bmag and b.u = 0
+    (fluid.f90:1404-1416)."""
+    gtt = g_cov[..., 0]
+    gtp = g_cov[..., 3]
+    gpp = g_cov[..., 9]
+    aleph = -(gtp * u[..., 0] + gpp * u[..., 3]) \
+        / (gtt * u[..., 0] + gtp * u[..., 3])
+    bb = gtt * aleph * aleph + gpp + 2.0 * gtp * aleph
+    pos = bb > 0.0
+    bphi = torch.where(pos, bmag / torch.where(pos, bb, 1.0).sqrt(), 0.0)
+    z = torch.zeros_like(bphi)
+    return torch.stack([aleph * bphi, z, z, bphi], dim=-1)
 
 
 def calc_gmin(p, thetae, eta):
@@ -120,7 +154,7 @@ def register(name):
 def load_fluid_model(name, *, device, **kwargs):
     """Instantiate a fluid model by fname on `device`
     (fluid.f90:163-243)."""
-    from grtrans_tpu_torch.fluid import ffjet  # noqa: F401  (registers)
+    from grtrans_tpu_torch.fluid import analytic, ffjet  # noqa: F401
     factory = _REGISTRY.get(name.upper())
     if factory is None:
         raise NotImplementedError(

@@ -66,6 +66,26 @@ def metric_con(r, th, a):
     return torch.stack(g, dim=-1)
 
 
+def calc_rms(a):
+    """ISCO radius (prograde for a > 0), a Python float (kerr.f90:101-107)."""
+    z1 = 1.0 + (1.0 - a * a) ** (1.0 / 3.0) * ((1.0 + a) ** (1.0 / 3.0)
+                                               + (1.0 - a) ** (1.0 / 3.0))
+    z2 = math.sqrt(3.0 * a * a + z1 * z1)
+    sign = (a > 0) - (a < 0)
+    return 3.0 + z2 - sign * math.sqrt((3.0 - z1) * (3.0 + z1 + 2.0 * z2))
+
+
+def calc_rms_constants(a):
+    """(E_ms, L_ms, r_ms) of the marginally stable orbit, Python floats
+    (kerr.f90:1129-1138)."""
+    rms = calc_rms(a)
+    v = 1.0 / math.sqrt(rms)
+    den = math.sqrt(1.0 - 3.0 * v * v + 2.0 * a * v ** 3)
+    ems = (1.0 - 2.0 * v * v + a * v ** 3) / den
+    lms = rms * v * (1.0 - 2.0 * a * v ** 3 + a * a * v ** 4) / den
+    return ems, lms, rms
+
+
 def _lnrf_factors(r, mu, a):
     d = r * r - 2.0 * r + a * a
     ar = (r * r + a * a) ** 2 - a * a * d * (1.0 - mu * mu)
@@ -76,6 +96,18 @@ def _lnrf_factors(r, mu, a):
     epsi = (1.0 - mu * mu).sqrt() * (ar / rho).sqrt()
     om = 2.0 * a * r / ar
     return d, ar, rho, enu, emu1, emu2, epsi, om
+
+
+def lnrf_frame(vr, vt, omega, r, a, th):
+    """Coordinate 3-velocity (vr, vth, Omega = dphi/dt) -> LNRF physical
+    velocity (kerr.f90:402-425); zero where Delta <= 0."""
+    d, ar, rho, enu, emu1, emu2, epsi, om = _lnrf_factors(r, th.cos(), a)
+    vrl = emu1 / enu * vr
+    vtl = emu2 / enu * vt
+    vpl = epsi / enu * (omega - om)
+    ok = d > 0.0
+    return (torch.where(ok, vrl, 0.0), torch.where(ok, vtl, 0.0),
+            torch.where(ok, vpl, 0.0))
 
 
 def lnrf_frame_inv(vrl, vtl, vpl, r, a, th):
@@ -115,3 +147,41 @@ def calc_nullp(q2, l, a, r, mu, su, smu):
           + (r * r + a * a) / d * (r * r + a * a - a * l)) / rho2
     kph = (-a + l / one_m + a / d * (r * r + a * a - a * l)) / rho2
     return torch.stack(torch.broadcast_tensors(kt, kr, kmu, kph), dim=-1)
+
+
+def calc_u0(g_cov, vr, vth, vph):
+    """u^t from the BL coordinate 3-velocity (kerr.f90:1120-1127); 1.0
+    where the 3-velocity is spacelike (callers mask those points)."""
+    den = (g_cov[..., 0] + g_cov[..., 4] * vr ** 2
+           + g_cov[..., 7] * vth ** 2 + g_cov[..., 9] * vph ** 2
+           + 2.0 * g_cov[..., 3] * vph)
+    ok = den < 0.0
+    return torch.where(ok, (-1.0 / torch.where(ok, den, -1.0)).sqrt(), 1.0)
+
+
+def calc_plunging_vel(a, r):
+    """Equatorial plunging four-velocity inside the ISCO (Hughes 2000/01;
+    kerr.f90:1140-1166)."""
+    ems, lms, _ = calc_rms_constants(a)
+    gcon = metric_con(r, torch.full_like(r, math.pi / 2.0), a)
+    p_t = -gcon[..., 0] * ems + gcon[..., 3] * lms
+    den = -gcon[..., 4] * (1.0 + gcon[..., 0] * ems * ems
+                           - 2.0 * gcon[..., 3] * ems * lms
+                           + gcon[..., 9] * lms * lms)
+    p_r = -safe_sqrt(den)
+    p_ph = -gcon[..., 3] * ems + gcon[..., 9] * lms
+    return torch.stack([p_t, p_r, torch.zeros_like(p_t), p_ph], dim=-1)
+
+
+def rms_vel(a, th, r):
+    """Plunging-region four-velocity off the equatorial plane: the
+    equatorial plunging LNRF velocity re-expressed at polar angle th
+    (kerr.f90:1168-1190)."""
+    fueq = calc_plunging_vel(a, r)
+    theq = torch.full_like(r, math.pi / 2.0)
+    vrl, vtl, vpl = lnrf_frame(fueq[..., 1] / fueq[..., 0],
+                               fueq[..., 2] / fueq[..., 0],
+                               fueq[..., 3] / fueq[..., 0], r, a, theq)
+    vr, vt, om = lnrf_frame_inv(vrl, vtl, vpl, r, a, th)
+    u0 = calc_u0(metric_cov(r, th, a), vr, vt, om)
+    return torch.stack([u0, u0 * vr, u0 * vt, u0 * om], dim=-1)

@@ -8,7 +8,13 @@ takes CPU tensors to `quad_gather_ref`, the plain PyTorch version, and
 CUDA tensors to the hand-written kernel in csrc/quad_gather.cu; there is
 no fallback between the two.
 
-The kernel is compiled with nvcc on first use into
+The source holds two kernels: a tiled one for the renderer's two shapes,
+(nc, nf) = (4, 9) and (2, 6), which needs 16-byte aligned operands, and a
+generic one (one thread per output element) for everything else.  The
+wrapper picks by shape and alignment; `generic=True` forces the generic
+kernel so the two can be timed against each other.
+
+The library is compiled with nvcc on first use into
 grtrans_tpu_torch/_build/, keyed by a hash of its source, and bound with
 ctypes.  `quad_gather.launches` counts kernel launches.
 """
@@ -38,7 +44,7 @@ def quad_gather_ref(table, idx, w, nc, nf):
     return (table[idx.long()].view(n, nc, nf) * w[..., None]).sum(-2)
 
 
-def quad_gather(table, idx, w, nc, nf):
+def quad_gather(table, idx, w, nc, nf, generic=False):
     """table (NS, nc*nf) float32/float64; idx (N,) int32; w (N, nc) of the
     table's dtype; all contiguous on one device.  Returns (N, nf)."""
     if table.dim() != 2 or table.shape[1] != nc * nf:
@@ -60,7 +66,7 @@ def quad_gather(table, idx, w, nc, nf):
         return quad_gather_ref(table, idx, w, nc, nf)
     if table.device.type != "cuda":
         raise NotImplementedError(f"no quad_gather for {table.device}")
-    return _launch(table, idx, w, nc, nf)
+    return _launch(table, idx, w, nc, nf, generic)
 
 
 quad_gather.launches = 0
@@ -78,18 +84,22 @@ def error_flag(device):
     return flag
 
 
-def _launch(table, idx, w, nc, nf):
+def _launch(table, idx, w, nc, nf, generic):
     lib = load_library()
     n = idx.shape[0]
     out = torch.empty((n, nf), dtype=table.dtype, device=table.device)
     err = error_flag(table.device)
+    # the tiled kernel moves 16-byte pieces; the generic one takes any
+    # alignment
+    aligned = all(t.data_ptr() % 16 == 0 for t in (table, w, out))
+    variant = 1 if generic or not aligned else 0
     fn = (lib.quad_gather_f64 if table.dtype == torch.float64
           else lib.quad_gather_f32)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
                 out.data_ptr(), err.data_ptr(), n, table.shape[0], nc, nf,
-                stream)
+                variant, stream)
     if rc != 0:
         raise RuntimeError(f"quad_gather launch failed: CUDA error {rc}")
     quad_gather.launches += 1
@@ -144,7 +154,8 @@ def load_library():
         for name in ("quad_gather_f32", "quad_gather_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ptr]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

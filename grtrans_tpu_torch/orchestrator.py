@@ -23,21 +23,39 @@ def _source_params(cfg, mdot):
                         coefindx=cfg.epcoefindx)
 
 
-def grtrans_run(cfg, model=None, *, device):
+def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
+                **unported):
     """Render every camera of `cfg` on `device`.
 
     model: a loaded fluid model (else loaded from cfg.fname/cfg.fargs).
-    Returns (ivals, ab, freqs): ivals (ncams, npix, nvals) and ab
+    chunk: render each camera in pixel blocks of at most this many pixels
+    (the last block is simply shorter), which bounds device memory for
+    cameras too large to trace in one piece; rays are independent, so the
+    image is the unchunked one up to the roundoff of batched elementwise
+    kernels.  reuse_geo is accepted for callers of
+    grtrans_tpu.orchestrator.grtrans_run: the geodesics and the sampled
+    fluid of a mu-camera (or of one of its pixel blocks) are always traced
+    once and reused by every (time, mdot) render of it, whatever its
+    value.  Returns (ivals, ab, freqs): ivals (ncams, npix, nvals) and ab
     (2, npix) tensors on `device`, freqs the numpy frequency grid."""
+    if unported:
+        raise NotImplementedError(
+            f"grtrans_run options not ported: {sorted(unported)}")
     if getattr(model, "timedep", False) or (
             cfg.nload > 1 and getattr(model, "nt_slices", 1) > 1):
         raise NotImplementedError("time-dependent fluids are not ported")
     if cfg.prec != "f64":
         raise NotImplementedError(f"prec={cfg.prec!r} is not ported")
+    if cfg.standard != 1:
+        raise NotImplementedError(
+            f"standard={cfg.standard!r} (trace_polar) is not ported")
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be a positive pixel count, got {chunk}")
     a = cfg.spin
     a1, a2, b1, b2 = cfg.gridvals
     nro, nphi, nup = cfg.nn
     freqs = cfg.freqs()
+    freq_list = [float(f) for f in freqs]
     mus = cfg.mus()
     if model is None:
         model = load_fluid_model(cfg.fname, device=device, **cfg.fargs)
@@ -60,18 +78,27 @@ def grtrans_run(cfg, model=None, *, device):
                                sm=cam.sm[lo:hi])
         if ab is None:
             ab = torch.stack([cam.alpha, cam.beta], dim=0)
-        geo = geokerr.trace(a, float(mu0), cam.alpha, cam.beta, cam.l,
-                            cam.q2, cam.sm, cam.u0, nup,
-                            uout=cfg.uout if use_uout else None,
-                            phi0=cfg.phi0)
-        fv = model.vals(geo.x, geo.k, a)
-        for _ in range(cfg.nt):
-            for mdot in cfg.mdots():
-                sp = _source_params(cfg, float(mdot))
-                ei = model.convert(fv, sp)
-                ivals.append(driver.render_rays(
-                    geo, fv, ei, cfg.ename, [float(f) for f in freqs],
-                    float(mu0), cam.alpha, cam.beta, a, cfg.mbh, sp,
-                    iname=cfg.iname, nvals=cfg.nvals, standard=cfg.standard,
-                    extra=cfg.extra))
+        npix = cam.alpha.shape[0]
+        step = npix if chunk is None else min(chunk, npix)
+        # scan[i]: the pixel blocks of the i-th (time, mdot) render
+        scan = [[] for _ in range(cfg.nt * cfg.nmdot)]
+        for lo in range(0, npix, step):
+            blk = slice(lo, lo + step)
+            alpha, beta = cam.alpha[blk], cam.beta[blk]
+            geo = geokerr.trace(a, float(mu0), alpha, beta, cam.l[blk],
+                                cam.q2[blk], cam.sm[blk], cam.u0, nup,
+                                uout=cfg.uout if use_uout else None,
+                                phi0=cfg.phi0)
+            fv = model.vals(geo.x, geo.k, a)
+            renders = iter(scan)
+            for _ in range(cfg.nt):
+                for mdot in cfg.mdots():
+                    sp = _source_params(cfg, float(mdot))
+                    ei = model.convert(fv, sp)
+                    next(renders).append(driver.render_rays(
+                        geo, fv, ei, cfg.ename, freq_list, float(mu0), alpha,
+                        beta, a, cfg.mbh, sp, iname=cfg.iname,
+                        nvals=cfg.nvals, standard=cfg.standard,
+                        extra=cfg.extra, debug=cfg.debug))
+        ivals.extend(torch.cat(parts, dim=1) for parts in scan)
     return torch.cat(ivals, dim=0), ab, freqs

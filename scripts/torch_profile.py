@@ -1,12 +1,15 @@
-"""Where the time goes in one warm flagship frame of the PyTorch port.
+"""Where the time goes in one warm frame of the PyTorch port.
 
-    python3 scripts/torch_profile.py [--nn 100 100 400] [--out FILE]
+    python3 scripts/torch_profile.py [--config ffjet|sariaf]
+                                     [--nn 100 100 400] [--out FILE]
 
-Renders the FFJET/POLSYNCHPL flagship (float64, synthetic dump at the
-real table size) on one CUDA card: a warm-up frame, one whole frame, then
-its stages one by one (geodesic trace, fluid sampling, render_rays, and
-the Stokes march inside render_rays on its own), each under
-torch.profiler.  Prints one JSON object (also written to --out): per stage
+Renders one configuration in float64 on one CUDA card: `ffjet`, the
+FFJET/POLSYNCHPL flagship with the formal integrator (synthetic dump at
+the real table size), or `sariaf`, the Sgr A* RIAF (SARIAF + HYBRIDTHPL,
+lsoda integrator, three frequencies).  A warm-up frame, one whole frame,
+then its stages one by one (geodesic trace, fluid sampling, render_rays,
+and the Stokes march of the last frequency inside render_rays on its
+own), each under torch.profiler.  Prints one JSON object (also written to --out): per stage
 the host wall time (inflated by the profiler's per-op cost), the device
 busy time (sum of kernel durations on the card), the idle share
 1 - busy / wall, the number of kernel launches, and the kernels with the
@@ -28,6 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from grtrans_tpu_torch import convert, driver  # noqa: E402
 from grtrans_tpu_torch.config import GrtransConfig  # noqa: E402
+from grtrans_tpu_torch.fluid.base import load_fluid_model  # noqa: E402
 from grtrans_tpu_torch.fluid.ffjet import load_ffjet_file  # noqa: E402
 from grtrans_tpu_torch.geodesics import camera, geokerr  # noqa: E402
 from grtrans_tpu_torch.integrate import solvers  # noqa: E402
@@ -35,7 +39,32 @@ from grtrans_tpu_torch.orchestrator import (_source_params,  # noqa: E402
                                             grtrans_run)
 from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump  # noqa: E402
 
-A, MU0 = 0.998, 0.906
+
+def ffjet_setup(nn, dev):
+    """(config, model) of the FFJET flagship."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dfile = Path(tmp) / "ffjet.bin"
+        write_ffjet_dump(dfile)
+        model = convert.ffjet_from_arrays(*load_ffjet_file(dfile), dev)
+    return GrtransConfig(
+        fname="FFJET", ename="POLSYNCHPL", nvals=4, spin=0.998, standard=1,
+        nn=nn, uout=0.01, mbh=3.4e9, mumin=0.906, mumax=0.906,
+        fmin=3.45e11, fmax=3.45e11, gridvals=(-40.0, 20.0, -20.0, 40.0),
+        iname="formal"), model
+
+
+def sariaf_setup(nn, dev):
+    """(config, model) of the Sgr A* RIAF with thermal + power-law
+    synchrotron."""
+    cfg = GrtransConfig(
+        fname="SARIAF", ename="HYBRIDTHPL", nvals=4, spin=0.9, standard=1,
+        nn=nn, mbh=4e6, mumin=0.5, mumax=0.5, nfreq=3, fmin=1e11, fmax=1e12,
+        iname="lsoda", gridvals=(-15.0, 15.0, -15.0, 15.0),
+        fargs=dict(n0=4e7, t0=1.6e11, beta=10.0))
+    return cfg, load_fluid_model(cfg.fname, device=dev, **cfg.fargs)
+
+
+SETUPS = {"ffjet": ffjet_setup, "sariaf": sariaf_setup}
 
 
 def profiled(fn, top=8):
@@ -62,6 +91,7 @@ def profiled(fn, top=8):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=sorted(SETUPS), default="ffjet")
     ap.add_argument("--nn", type=int, nargs=3, default=(100, 100, 400))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
@@ -69,29 +99,26 @@ def main():
         raise SystemExit("torch_profile: needs a CUDA device")
     dev = torch.device("cuda", 0)
     nro, nphi, npts = args.nn
-    with tempfile.TemporaryDirectory() as tmp:
-        dfile = Path(tmp) / "ffjet.bin"
-        write_ffjet_dump(dfile)
-        model = convert.ffjet_from_arrays(*load_ffjet_file(dfile), dev)
-    cfg = GrtransConfig(
-        fname="FFJET", ename="POLSYNCHPL", nvals=4, spin=A, standard=1,
-        nn=(nro, nphi, npts), uout=0.01, mbh=3.4e9, mumin=MU0, mumax=MU0,
-        fmin=3.45e11, fmax=3.45e11, gridvals=(-40.0, 20.0, -20.0, 40.0),
-        iname="formal")
+    cfg, model = SETUPS[args.config]((nro, nphi, npts), dev)
+    spin, mu0 = cfg.spin, cfg.mumin
+    freqs = [float(f) for f in cfg.freqs()]
     grtrans_run(cfg, model, device=dev)                   # warm-up
     _, whole = profiled(lambda: grtrans_run(cfg, model, device=dev))
 
-    cam = camera.make_camera(A, MU0, *cfg.gridvals, nro, nphi, device=dev)
+    cam = camera.make_camera(spin, mu0, *cfg.gridvals, nro, nphi,
+                             device=dev)
     sp = _source_params(cfg, float(cfg.mdotmin))
     stages = {}
     geo, stages["trace"] = profiled(lambda: geokerr.trace(
-        A, MU0, cam.alpha, cam.beta, cam.l, cam.q2, cam.sm, cam.u0, npts,
-        uout=0.01, phi0=cfg.phi0))
-    fv, stages["ffjet_vals"] = profiled(lambda: model.vals(geo.x, geo.k, A))
+        spin, mu0, cam.alpha, cam.beta, cam.l, cam.q2, cam.sm, cam.u0, npts,
+        uout=cfg.uout if cfg.uout > cam.u0 * 1.0001 else None,
+        phi0=cfg.phi0))
+    fv, stages["fluid_vals"] = profiled(
+        lambda: model.vals(geo.x, geo.k, spin))
     ei = model.convert(fv, sp)
 
     # the Stokes march is profiled on its own, on the arguments that
-    # render_rays hands it (profilers do not nest)
+    # render_rays hands it for the last frequency (profilers do not nest)
     captured = {}
     observed_stokes = solvers.observed_stokes
 
@@ -102,18 +129,19 @@ def main():
     solvers.observed_stokes = capture
     try:
         _, stages["render_rays"] = profiled(lambda: driver.render_rays(
-            geo, fv, ei, cfg.ename, [cfg.fmin], MU0, cam.alpha, cam.beta, A,
-            cfg.mbh, sp, iname="formal"))
+            geo, fv, ei, cfg.ename, freqs, mu0, cam.alpha, cam.beta, spin,
+            cfg.mbh, sp, iname=cfg.iname))
     finally:
         solvers.observed_stokes = observed_stokes
     a, k = captured["args"]
-    _, stages["observed_stokes (part of render_rays)"] = profiled(
-        lambda: observed_stokes(*a, **k))
+    _, stages["observed_stokes (one frequency, part of render_rays)"] = \
+        profiled(lambda: observed_stokes(*a, **k))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    result = {"card": card,
-              "nn": [nro, nphi, npts], "frame": whole, "stages": stages}
+    result = {"card": card, "config": args.config, "iname": cfg.iname,
+              "nfreq": cfg.nfreq, "nn": [nro, nphi, npts], "frame": whole,
+              "stages": stages}
     text = json.dumps(result, indent=1)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

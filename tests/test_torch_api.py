@@ -1,0 +1,209 @@
+"""The slice as a whole: grtrans_tpu_torch.api.Grtrans against
+grtrans_tpu.api.Grtrans on the analytic fluids with thermal and hybrid
+synchrotron and the formal, lsoda and delo integrators, at 8x8 pixels x 32
+points and two frequencies, on the CPU.
+
+Bars.  Whole-image relative L1 over all Stokes components and cameras
+<= 1e-8, the bar of the FFJET render.  1e-10 does not hold: at 1e11 Hz
+these rays are Faraday-thick, so roundoff in the geodesics and the
+coefficients turns into polarization angle; jitted grtrans_tpu against
+grtrans_tpu run eagerly (jax.disable_jit) differs by 4.1e-9 on the hybrid /
+lsoda configuration, the port from the jitted run by 4.4e-9 (thermal /
+formal 1.9e-10, power law / delo 1.7e-7 before its temperature was raised
+into the emitting range).  Stokes I alone agrees to 6e-10.  Spectra of I to
+1e-9 relative, of Q, U, V to 1e-7 of I, centroids and sizes to 1e-7,
+polarization fractions to 1e-7 absolute.
+
+The cameras start at uout = 0.0025 (r = 400).  With the default
+uout = 1e-4 a SARIAF ray begins where theta_e = 0.02, inside the band
+where the thermal Faraday fit divides rounding noise by K_2(1/theta_e)
+(tests/test_torch_bessel_polsynch.py): XLA's tanh leaves 1.1e-16 there and
+grtrans_tpu's rho_V is noise of order 1e3 rad a cell, torch's tanh gives the
+exact 0, so Q and U differ by 3.6e-5 of their sums while I agrees to
+2.1e-10.  One test renders that default and holds I alone.
+
+The pixel-block and geodesic-reuse options are held against the port's own
+plain run: rays are independent, so only the batched elementwise kernels'
+roundoff may differ (bar 1e-12 of max|I|)."""
+
+import numpy as np
+import pytest
+
+from grtrans_tpu.api import Grtrans as JGrtrans
+from grtrans_tpu.io.binio import read_camera_bin as jread_camera_bin
+from grtrans_tpu_torch.api import Grtrans
+from grtrans_tpu_torch.io.binio import read_camera_bin
+
+COMMON = dict(spin=0.9, standard=1, nn=(8, 8, 32), mbh=4e6, mumin=0.5,
+              mumax=0.5, nfreq=2, fmin=1e11, fmax=1e12,
+              gridvals=(-15.0, 15.0, -15.0, 15.0), uout=0.0025)
+RIAF = dict(n0=4e7, t0=1.6e11, beta=10.0)
+POWERLAW = dict(n0=3e7, t0=6e10, beta=10.0)
+CONFIGS = {
+    "sariaf_thermal_formal": dict(fname="SARIAF", ename="POLSYNCHTH",
+                                  nvals=4, iname="formal", fargs=RIAF),
+    "sariaf_hybrid_lsoda": dict(fname="SARIAF", ename="HYBRIDTHPL", nvals=4,
+                                iname="lsoda", fargs=RIAF),
+    # gmin = 1 keeps R_high = gmin (1 / muval - 1) at 3, so the electrons
+    # stay at theta_e ~ 2.5 and the image is lit
+    "powerlaw_thermal_delo": dict(fname="POWERLAW", ename="POLSYNCHTH",
+                                  nvals=4, iname="delo", gmin=1.0,
+                                  fargs=POWERLAW),
+    "powerlaw_thermal_delo_unpolarized": dict(
+        fname="POWERLAW", ename="POLSYNCHTH", nvals=1, iname="delo",
+        gmin=1.0, fargs=POWERLAW),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def pair(request):
+    kw = dict(COMMON, **CONFIGS[request.param])
+    return (request.param, Grtrans(**kw).run(device="cpu"),
+            JGrtrans(**kw).run())
+
+
+def _spec_close(ours, ref):
+    """Stokes I to 1e-9 relative, Q, U, V to 1e-7 of the largest I (V of the
+    hybrid / lsoda camera at 1e11 Hz differs by 9e-6 of itself, and by
+    1.2e-6 between jitted and eager grtrans_tpu)."""
+    np.testing.assert_allclose(ours[0], ref[0], rtol=1e-9)
+    np.testing.assert_allclose(ours, ref, rtol=1e-9,
+                               atol=1e-7 * np.abs(ref[0]).max())
+
+
+def test_image_matches_jax(pair):
+    name, ours, ref = pair
+    nvals = CONFIGS[name]["nvals"]
+    assert ours.ivals.shape == ref.ivals.shape == (64, nvals, 2)
+    assert np.isfinite(ours.ivals).all()
+    np.testing.assert_array_equal(ours.ab, ref.ab)
+    np.testing.assert_array_equal(ours.freqs, ref.freqs)
+    rel_l1 = np.abs(ours.ivals - ref.ivals).sum() / np.abs(ref.ivals).sum()
+    print(f"{name}: I max {ours.ivals[:, 0].max(0)}, rel L1 {rel_l1:.3e}")
+    assert ours.ivals[:, 0].max() > 1e-5      # a lit image, not 1e-30
+    assert rel_l1 <= 1e-8
+    rel_i = np.abs(ours.ivals[:, 0] - ref.ivals[:, 0]).sum() \
+        / ref.ivals[:, 0].sum()
+    assert rel_i <= 1e-9
+
+
+def test_spectrum_polarization_and_centroid_match_jax(pair):
+    name, ours, ref = pair
+    _spec_close(ours.spec, ref.spec)
+    assert (ours.da, ours.db) == (ref.da, ref.db)
+    if CONFIGS[name]["nvals"] == 4:
+        for attr in ("lp", "cp", "lpf", "cpf"):
+            np.testing.assert_allclose(getattr(ours, attr),
+                                       getattr(ref, attr), rtol=1e-6,
+                                       atol=1e-7)
+        if CONFIGS[name]["iname"] != "delo":
+            # DELO at 32 points a ray leaves negative I in thick pixels, in
+            # both packages alike
+            assert ((0.0 <= ours.lp) & (ours.lp <= 1.0)).all()
+    ours.calc_centroid_size()
+    ref.calc_centroid_size()
+    for attr in ("xcen", "ycen", "amax", "amin", "theta"):
+        # second moments cancel against the squared centroid
+        np.testing.assert_allclose(getattr(ours, attr), getattr(ref, attr),
+                                   rtol=1e-7, atol=1e-9)
+
+
+def test_unit_conversions_and_binary_output_match_jax(pair, tmp_path):
+    name, ours, ref = pair
+    path = tmp_path / "cams.bin"
+    ours.write_output(path, fmt="bin")
+    ref.write_output(tmp_path / "ref.bin", fmt="bin")
+    assert path.stat().st_size == (tmp_path / "ref.bin").stat().st_size
+    ab, cams, keys = jread_camera_bin(path)
+    np.testing.assert_allclose(cams, jread_camera_bin(tmp_path / "ref.bin")[1],
+                               rtol=1e-6, atol=1e-7 * np.abs(cams).max())
+    assert len(cams) == 2 and [float(k[0]) for k in keys] == [
+        float(np.float32(f)) for f in ours.freqs]
+    np.testing.assert_array_equal(ab, ours.ab.astype(np.float32))
+    for i, cam in enumerate(cams):
+        np.testing.assert_array_equal(cam,
+                                      ours.ivals[:, :, i].astype(np.float32))
+    for a, b in zip(read_camera_bin(path)[1], cams):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(NotImplementedError, match="fits"):
+        ours.write_output(tmp_path / "cams.fits", fmt="fits")
+
+    # conversions act on copies of the fixture's results
+    mine, theirs = Grtrans(), JGrtrans()
+    for obj, src in ((mine, ours), (theirs, ref)):
+        obj.__dict__.update({k: np.copy(v) if isinstance(v, np.ndarray)
+                             else v for k, v in src.__dict__.items()})
+    _spec_close(mine.convert_to_lum(), theirs.convert_to_lum())
+    _spec_close(mine.convert_to_Jy(2.5e22), theirs.convert_to_Jy(2.5e22))
+    np.testing.assert_allclose(mine.ivals, theirs.ivals, rtol=1e-9,
+                               atol=1e-7 * np.abs(theirs.ivals).max())
+
+
+@pytest.fixture(scope="module")
+def plain():
+    kw = dict(COMMON, **CONFIGS["sariaf_hybrid_lsoda"])
+    return kw, Grtrans(**kw).run(device="cpu")
+
+
+def test_pixel_blocks_equal_the_plain_run(plain):
+    """chunk=24 cuts 64 pixels into 24 + 24 + 16: the last block is short,
+    not padded."""
+    kw, whole = plain
+    blocks = Grtrans(**kw).run(device="cpu", chunk=24)
+    np.testing.assert_array_equal(blocks.ab, whole.ab)
+    np.testing.assert_allclose(blocks.ivals, whole.ivals, rtol=0.0,
+                               atol=1e-12 * np.abs(whole.ivals).max())
+    np.testing.assert_allclose(blocks.spec, whole.spec, rtol=1e-12)
+
+
+def test_geodesic_reuse_over_an_mdot_scan_equals_the_plain_run(plain):
+    """nmdot=3 renders three cameras per frequency set from one trace;
+    SARIAF does not scale with mdot, so each equals the plain run, in the
+    order freq fastest, then mdot."""
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    kw, whole = plain
+    cfg = GrtransConfig(**dict(kw, nmdot=3, mdotmin=1e14, mdotmax=1e16))
+    for options in (dict(reuse_geo=True), dict(reuse_geo=True, chunk=24),
+                    dict()):
+        ivals, _, freqs = grtrans_run(cfg, device="cpu", **options)
+        assert ivals.shape == (6, 64, 4) and len(freqs) == 2
+        for cam in range(6):
+            np.testing.assert_allclose(
+                ivals[cam].numpy(), whole.ivals[:, :, cam % 2], rtol=0.0,
+                atol=1e-12 * np.abs(whole.ivals).max())
+    with pytest.raises(NotImplementedError, match="gdfile"):
+        grtrans_run(cfg, device="cpu", gdfile="geo.npz")
+
+
+def test_default_uout_agrees_in_intensity():
+    """uout = 1e-4: the rays start in grtrans_tpu's rho_V noise band (module
+    docstring), so only Stokes I is held."""
+    kw = dict(COMMON, **CONFIGS["sariaf_thermal_formal"])
+    del kw["uout"]
+    ours = Grtrans(**kw).run(device="cpu")
+    ref = JGrtrans(**kw).run()
+    rel_i = np.abs(ours.ivals[:, 0] - ref.ivals[:, 0]).sum(0) \
+        / ref.ivals[:, 0].sum(0)
+    assert (rel_i <= 1e-9).all(), rel_i
+    assert np.isfinite(ours.ivals).all()
+    np.testing.assert_allclose(ours.spec[0], ref.spec[0], rtol=1e-9)
+
+
+def test_run_without_a_device_does_not_fall_back_to_the_cpu():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: run() would render on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Grtrans(**dict(COMMON, **CONFIGS["sariaf_thermal_formal"])).run()
+
+
+@pytest.mark.parametrize("change", [dict(fname="THINDISK"), dict(ename="BB"),
+                                    dict(standard=2), dict(prec="mixed"),
+                                    dict(extra=1), dict(debug=1)])
+def test_unported_options_raise_by_name(change):
+    kw = dict(COMMON, **CONFIGS["sariaf_thermal_formal"])
+    kw.update(change, nn=(4, 4, 16))
+    (key, value), = change.items()
+    with pytest.raises(NotImplementedError, match=str(value)):
+        Grtrans(**kw).run(device="cpu")

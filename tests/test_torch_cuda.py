@@ -30,11 +30,13 @@ def dev():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 4099, 4_000_007])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("ns,nc,nf", [(16384, 4, 9), (201, 2, 6)],
-                         ids=["ffjet", "polsynchpl"])
-def test_quad_gather_kernel_matches_plain(dev, dtype, ns, nc, nf):
-    n = 4099                                  # ragged against any block size
+@pytest.mark.parametrize("ns,nc,nf", [(16384, 4, 9), (201, 2, 6), (77, 3, 5)],
+                         ids=["ffjet", "polsynchpl", "generic"])
+def test_quad_gather_kernel_matches_plain(dev, dtype, ns, nc, nf, n):
+    """The tiled kernel (ffjet, polsynchpl shapes) and the generic one, at
+    query counts ragged against the 128-query tile."""
     rng = np.random.default_rng(0)
     table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
                             device=dev)
@@ -51,16 +53,37 @@ def test_quad_gather_kernel_matches_plain(dev, dtype, ns, nc, nf):
     assert out.shape == (n, nf) and out.dtype == dtype
     err = (out - ref).abs().max().item()
     assert err <= TOL[dtype] * ref.abs().max().item()
+    forced = qg.quad_gather(table, idx, w, nc, nf, generic=True)
+    assert (forced - ref).abs().max().item() <= TOL[dtype] * \
+        ref.abs().max().item()
 
 
 @pytest.mark.cuda
-def test_quad_gather_flags_out_of_range_rows(dev):
-    table = torch.zeros((16, 4), dtype=torch.float64, device=dev)
+def test_quad_gather_takes_unaligned_operands(dev):
+    """A weight view that starts 8 bytes into its storage cannot feed
+    16-byte loads: the wrapper sends it to the generic kernel."""
+    rng = np.random.default_rng(1)
+    table = torch.as_tensor(rng.standard_normal((201, 12)), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 201, 1000), dtype=torch.int32,
+                          device=dev)
+    flat = torch.as_tensor(rng.uniform(0, 1, 2001), device=dev)
+    w = flat[1:].view(1000, 2)
+    assert w.data_ptr() % 16 == 8 and w.is_contiguous()
+    out = qg.quad_gather(table, idx, w, 2, 6)
+    ref = qg.quad_gather_ref(table, idx, w, 2, 6)
+    assert (out - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,nf", [(2, 2), (4, 9), (2, 6)],
+                         ids=["generic", "ffjet", "polsynchpl"])
+def test_quad_gather_flags_out_of_range_rows(dev, nc, nf):
+    table = torch.zeros((16, nc * nf), dtype=torch.float64, device=dev)
     idx = torch.tensor([0, 16, -1, 3], dtype=torch.int32, device=dev)
-    w = torch.ones((4, 2), dtype=torch.float64, device=dev)
+    w = torch.ones((4, nc), dtype=torch.float64, device=dev)
     flag = qg.error_flag(dev)
     try:
-        out = qg.quad_gather(table, idx, w, 2, 2)
+        out = qg.quad_gather(table, idx, w, nc, nf)
         torch.cuda.synchronize()
         assert flag.item() == 1
         assert torch.isnan(out[1:3]).all()

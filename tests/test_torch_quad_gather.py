@@ -83,6 +83,20 @@ def test_g_all_matches_jax(p):
     np.testing.assert_allclose(out, ref, rtol=1e-12, atol=0.0)
 
 
+@pytest.mark.parametrize("nc,nf", [(4, 9), (2, 6), (3, 5)])
+def test_kernel_choice_does_not_change_the_cpu_result(nc, nf):
+    """`generic=True` only picks between the two CUDA kernels; on the CPU
+    both spellings go to the plain version, for the tiled shapes and any
+    other."""
+    table, idx, w = _inputs(np.float64, n=257, nc=nc, nf=nf, ns=300, seed=5)
+    args = (torch.from_numpy(table), torch.from_numpy(idx),
+            torch.from_numpy(w), nc, nf)
+    out = quad_gather(*args)
+    assert torch.equal(out, quad_gather(*args, generic=True))
+    ref = np.einsum("nc,ncf->nf", w, table[idx].reshape(-1, nc, nf))
+    _close(out.numpy(), ref, 1e-14)
+
+
 def test_wrapper_rejects_bad_arguments():
     table, idx, w = (torch.from_numpy(v) for v in _inputs(np.float64, n=8))
     with pytest.raises(TypeError):

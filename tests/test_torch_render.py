@@ -75,8 +75,8 @@ def test_registry_load_and_unported_options(tmp_path):
     model = convert.ffjet_from_arrays(*load_ffjet_file(dfile), device="cpu")
     preloaded, _, _ = trun(cfg, model, device="cpu")
     assert torch.equal(by_name, preloaded)
-    for change in (dict(prec="mixed"), dict(iname="delo"), dict(extra=1),
-                   dict(ename="POLSYNCHTH"), dict(fname="SARIAF")):
+    for change in (dict(prec="mixed"), dict(fname="THINDISK"), dict(extra=1),
+                   dict(ename="BB"), dict(standard=2)):
         with pytest.raises(NotImplementedError):
             trun(dataclasses.replace(cfg, **change), device="cpu")
 

@@ -78,5 +78,5 @@ def test_passivity_clamp():
 
 def test_rejects_other_integrators():
     lam, j, K, mask = (torch.tensor(x) for x in _coefficients("generic"))
-    with pytest.raises(NotImplementedError):
-        tsol.observed_stokes(lam, j, K, method="delo")
+    with pytest.raises(ValueError):
+        tsol.observed_stokes(lam, j, K, method="rk4")
