@@ -7,7 +7,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   2. build the hand-written kernels of csrc/quad_gather.cu for sm_90a;
   3. hold the kernel against its plain PyTorch version on the card at the
      main paths' shapes (FFJET 4e6 queries x (16384, 36) table in f64 and
-     f32; the POLSYNCHPL cutoff table (201, 12)) on uniformly random rows,
+     f32; the POLSYNCHPL cutoff table (201, 12); PHATDISK's pair-packed
+     table (500, 2 x 101) at the 1024^2 queries of its frame) on
+     uniformly random rows,
      check the out-of-range flag, and time with CUDA events: the kernel
      the wrapper picks, the generic kernel, the plain version and
      embedding_bag (the one-call PyTorch yardstick), beside the bound
@@ -15,8 +17,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   4. render the FFJET flagship (POLSYNCHPL, 100x100 pixels x 400 points,
      float64) on a synthetic dump at the real table size through
      grtrans_run(device="cuda"), with the launch count of every kernel
-     reset just before and read just after; check the image and time two
-     warm renders and their stages; time the kernel once more on the
+     reset just before and read just after; check the image and time a
+     warm render and its stages; time the kernel once more on the
      index stream of that frame (neighbouring points of a ray share rows);
   5. check the card's render against the port's CPU render (the path the
      CPU tests hold against grtrans_tpu) at 16x16 x 64;
@@ -27,7 +29,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      time a warm run and read its peak memory;
   7. the same configuration at 16x16 x 64 for each of the formal, lsoda,
      delo and quadrature integrators, card against the port's CPU run:
-     the whole image from uout = 0.0025, Stokes I from the default uout.
+     the whole image from uout = 0.0025, Stokes I from the default uout;
+  8. the light curve of an orbiting hotspot (HOTSPOT + POLSYNCHPL, the
+     Broderick & Loeb 2006 spot around Sgr A*, 100x100 x 400 x 6 frames)
+     through Grtrans(...).run(), launches counted: finite, modulated by
+     the orbit, two quad_gather launches a frame, a rerun identical;
+  9. thin-disk imaging (standard=2: one point a ray, at the equatorial
+     crossing) at 1024x1024 pixels through Grtrans(...).run(): the
+     polarized Novikov-Thorne disk (THINDISK + BBPOL, 4 frequencies; I >= 0
+     and the polarization under Chandrasekhar's 11.8%), then the
+     inhomogeneous disk (PHATDISK + INTERP at its default table sizes),
+     which samples its table with quad_gather, launches counted;
+ 10. the card against the port's CPU run: the hotspot at 16x16 x 64 x 2
+     frames, both disks at 32x32 x 1, and a SARIAF + POLSYNCHTH + formal
+     render with extra=1 at 16x16 x 64 (Stokes and each of the 19 extra
+     channels).
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -49,6 +65,12 @@ FFJET_NX = 128                        # table (128^2, 4 x 9)
 REPS = 20
 KERNEL_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
 CPU_GPU_RTOL = 1e-8                   # whole-image rel L1, card vs CPU
+# each extra=1 channel's rel L1 over the image, card vs CPU (measured at most
+# 1.2e-10 on an NVIDIA H100 80GB HBM3, 700.00 W): ratios of
+# weighted sums, and a photosphere index that may move by one sample
+EXTRA_RTOL = 1e-8
+DISK_NN = (1024, 1024, 1)             # thin-disk camera: one point a ray
+HOTSPOT_FRAMES = 6
 
 
 def riaf_kwargs(nn, iname):
@@ -58,6 +80,32 @@ def riaf_kwargs(nn, iname):
                 fmin=1e11, fmax=1e12, iname=iname,
                 gridvals=(-15.0, 15.0, -15.0, 15.0),
                 fargs=dict(n0=4e7, t0=1.6e11, beta=10.0))
+
+
+def hotspot_kwargs(nn, nt):
+    """Broderick & Loeb (2006) spot on a 6 M orbit around Sgr A*."""
+    return dict(fname="HOTSPOT", ename="POLSYNCHPL", nvals=4, spin=0.9,
+                standard=1, nn=nn, mbh=4e6, mumin=0.5, mumax=0.5, nfreq=1,
+                fmin=2.3e11, fmax=2.3e11, iname="formal", nt=nt, dt=16.0,
+                gridvals=(-12.0, 12.0, -12.0, 12.0),
+                fargs=dict(rspot=1.5, r0spot=6.0, n0spot=4e7))
+
+
+def disk_kwargs(nn, **model):
+    """The thin-disk camera: a 10 Msun hole seen 75 degrees from the
+    axis."""
+    return dict(spin=0.9, standard=2, nn=nn, uout=0.01, mbh=10.0,
+                mumin=0.26, mumax=0.26,
+                gridvals=(-21.0, 21.0, -21.0, 21.0), **model)
+
+
+THINDISK = dict(fname="THINDISK", ename="BBPOL", nvals=4, nfreq=4,
+                fmin=2.41e16, fmax=6.31e18, fargs=dict(mbh=10.0, mdot=0.1))
+# the model's default table: 500 radii x 100 frequencies
+PHATDISK = dict(fname="PHATDISK", ename="INTERP", nvals=1, nfreq=3,
+                fmin=1e17, fmax=1e18,
+                fargs=dict(a=0.9, mbh=10.0, mdot=0.1, nw=80, fmin=3e16,
+                           fmax=3e18))
 
 
 def flagship_config(GrtransConfig, dfile, nn):
@@ -147,15 +195,15 @@ def time_gather(qg, name, table, idx, w, nc, nf):
     return res
 
 
-def check_kernel(qg, name, ns, nc, nf, dtype, dev):
-    """Kernel vs plain on the card on uniformly random rows; returns
+def check_kernel(qg, name, ns, nc, nf, dtype, dev, n=N_QUERIES):
+    """Kernel vs plain on the card on n uniformly random rows; returns
     (max_abs_err, times dict of time_gather)."""
     rng = np.random.default_rng(SEED)
     table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
                             device=dev)
-    idx = torch.as_tensor(rng.integers(0, ns, N_QUERIES), dtype=torch.int32,
+    idx = torch.as_tensor(rng.integers(0, ns, n), dtype=torch.int32,
                           device=dev)
-    w = torch.as_tensor(rng.uniform(0.0, 1.0, (N_QUERIES, nc)), dtype=dtype,
+    w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, nc)), dtype=dtype,
                         device=dev)
     err = compare_gather(qg, name, table, idx, w, nc, nf)
     return err, time_gather(qg, name, table, idx, w, nc, nf)
@@ -247,16 +295,14 @@ def ffjet_phases(dev, qg):
               f"total flux {flux:.9e}, LP max {lpmax:.6f}")
 
         torch.cuda.reset_peak_memory_stats(dev)
-        warm, rerun = [], 0.0
-        for _ in range(2):
-            t0 = time.perf_counter()
-            again, _, _ = grtrans_run(cfg, model, device=dev)
-            torch.cuda.synchronize()
-            warm.append(time.perf_counter() - t0)
-            rerun = max(rerun, (again - ivals).abs().max().item())
+        t0 = time.perf_counter()
+        again, _, _ = grtrans_run(cfg, model, device=dev)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        rerun = (again - ivals).abs().max().item()
         peak = torch.cuda.max_memory_allocated(dev)
-        print(f"warm render: {warm[0] * 1e3:.1f} ms, {warm[1] * 1e3:.1f} ms"
-              f" per frame ({npix / min(warm) / 1e6:.6f} Mrays/s); peak "
+        print(f"warm render: {warm * 1e3:.1f} ms per frame "
+              f"({npix / warm / 1e6:.6f} Mrays/s); peak "
               f"memory {peak / 2 ** 30:.3f} GiB; max|rerun - first| "
               f"{rerun:.3e}")
 
@@ -318,47 +364,58 @@ def ffjet_phases(dev, qg):
     return launches, frame_times
 
 
-def riaf_phases(dev, qg, card):
-    """Phases 6 and 7.  Returns the launches of the counted render."""
+def counted_run(qg, dev, name, kw):
+    """Grtrans(**kw).run() on the card with the kernel's launch count set
+    to 0 just before and read just after; then one warm run for the wall
+    time, the peak memory and a rerun that must be identical.  Returns
+    (result, launches)."""
     from grtrans_tpu_torch.api import Grtrans
 
-    # 6. this slice's path through the API, counted
-    kw = riaf_kwargs(NN, "lsoda")
-    npix = NN[0] * NN[1]
     qg.quad_gather.launches = 0
     t0 = time.perf_counter()
     x = Grtrans(**kw).run()
     first_s = time.perf_counter() - t0
     launches = qg.quad_gather.launches
+    if qg.error_flag(dev).item() != 0:
+        raise AssertionError(f"{name}: out-of-range table index")
+    if not np.isfinite(x.ivals).all():
+        raise AssertionError(f"{name}: image not finite")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    again = Grtrans(**kw).run()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    rerun = np.abs(again.ivals - x.ivals).max()
+    ncams = x.ivals.shape[2]
+    nn = kw["nn"]
+    print(f"{name} {nn[0]}x{nn[1]}x{nn[2]} x {ncams} cameras, f64: first "
+          f"{first_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms "
+          f"({ncams * nn[0] * nn[1] / warm_s / 1e6:.6f} Mrays/s); "
+          f"quad_gather launches {launches}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; max|rerun - first| {rerun:.3e}")
+    if rerun != 0.0:
+        raise AssertionError(f"{name}: rerun differs by {rerun}")
+    return x, launches
+
+
+def riaf_phases(dev, qg):
+    """Phases 6 and 7.  Returns the launches of the counted run."""
+    from grtrans_tpu_torch.api import Grtrans
+
+    # 6. the RIAF through the API, counted
+    kw = riaf_kwargs(NN, "lsoda")
+    x, launches = counted_run(qg, dev, "RIAF lsoda", kw)
     if launches < kw["nfreq"]:
         raise AssertionError(f"RIAF path launched quad_gather {launches} "
                              f"times for {kw['nfreq']} frequencies")
-    if qg.error_flag(dev).item() != 0:
-        raise AssertionError("RIAF path: out-of-range table index")
-    if x.ivals.shape != (npix, 4, kw["nfreq"]) \
-            or not np.isfinite(x.ivals).all():
+    if x.ivals.shape != (NN[0] * NN[1], 4, kw["nfreq"]):
         raise AssertionError(f"bad RIAF image {x.ivals.shape}")
     imax = x.ivals[:, 0].max(0)
     if not ((imax > 1e-5) & (imax < 1.0)).all():
         raise AssertionError(f"RIAF I max {imax}: not of order 1e-3 cgs")
     if not ((x.lp >= 0.0) & (x.lp <= 1.0)).all():
         raise AssertionError(f"RIAF LP {x.lp} outside [0, 1]")
-    print(f"RIAF {NN[0]}x{NN[1]}x{NN[2]} x {kw['nfreq']} freqs, lsoda, f64: "
-          f"first {first_s * 1e3:.1f} ms, quad_gather launches {launches}; "
-          f"I max {imax}, spectrum {x.spec[0]}, LP {x.lp}, CP {x.cp}")
-    torch.cuda.reset_peak_memory_stats(dev)
-    warm = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        again = Grtrans(**kw).run()
-        warm.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated(dev)
-    rerun = np.abs(again.ivals - x.ivals).max()
-    print(f"RIAF warm run: {warm[0] * 1e3:.1f} ms, {warm[1] * 1e3:.1f} ms "
-          f"for {kw['nfreq']} cameras "
-          f"({kw['nfreq'] * npix / min(warm) / 1e6:.6f} Mrays/s); peak "
-          f"memory {peak / 2 ** 30:.3f} GiB; max|rerun - first| {rerun:.3e}"
-          f"; card {card}")
+    print(f"RIAF: I max {imax}, spectrum {x.spec[0]}, LP {x.lp}, CP {x.cp}")
 
     # 7. every integrator, the card against the port's CPU run.  The gate
     # is on cameras that start at r = 400 (uout = 0.0025), where 64
@@ -384,6 +441,92 @@ def riaf_phases(dev, qg, card):
                     f"RIAF {iname} uout={uout:g}: card vs CPU rel L1 {rel}, "
                     f"Stokes I {rel_i}")
     return launches
+
+
+def hotspot_phase(dev, qg):
+    """Phase 8.  Returns the launches of the counted run."""
+    kw = hotspot_kwargs(NN, HOTSPOT_FRAMES)
+    x, launches = counted_run(qg, dev, "hotspot", kw)
+    if x.ivals.shape != (NN[0] * NN[1], 4, HOTSPOT_FRAMES):
+        raise AssertionError(f"bad hotspot image {x.ivals.shape}")
+    # POLSYNCHPL looks its cutoff table up at x_min and x_max: two launches
+    # a frame and frequency
+    if launches != 2 * HOTSPOT_FRAMES:
+        raise AssertionError(f"hotspot path launched quad_gather {launches} "
+                             f"times, not {2 * HOTSPOT_FRAMES}")
+    lc = x.spec[0]
+    mod = lc.std() / lc.mean()
+    print(f"hotspot light curve {lc}, std/mean {mod:.4f}, LP {x.lp}")
+    if not (lc.min() > 0 and mod > 0.1):
+        raise AssertionError(f"hotspot light curve {lc}: no orbital "
+                             "modulation")
+    return launches
+
+
+def disk_phase(dev, qg):
+    """Phase 9.  Returns the launches of the two counted runs."""
+    npix = DISK_NN[0] * DISK_NN[1]
+    x, thin_launches = counted_run(qg, dev, "thin disk",
+                                   disk_kwargs(DISK_NN, **THINDISK))
+    if x.ivals.shape != (npix, 4, THINDISK["nfreq"]):
+        raise AssertionError(f"bad thin-disk image {x.ivals.shape}")
+    I = x.ivals[:, 0]
+    lp = np.sqrt(x.ivals[:, 1] ** 2 + x.ivals[:, 2] ** 2)
+    nz = I > I.max() * 1e-6
+    if not ((I >= 0).all() and I.max() > 0
+            and (lp[nz] <= 0.1180 * I[nz] * 1.001).all()):
+        raise AssertionError("thin disk: negative I or polarization above "
+                             "the Chandrasekhar maximum")
+    print(f"thin disk: I max {I.max(0)}, spectrum {x.spec[0]}, LP {x.lp}, "
+          f"largest pixel LP {(lp[nz] / I[nz]).max():.5f}, "
+          f"{(I[:, 0] > 0).mean():.4f} of the rays hit the disk")
+
+    x, phat_launches = counted_run(qg, dev, "phatdisk",
+                                   disk_kwargs(DISK_NN, **PHATDISK))
+    if x.ivals.shape != (npix, 1, PHATDISK["nfreq"]):
+        raise AssertionError(f"bad PHATDISK image {x.ivals.shape}")
+    if phat_launches < 1:
+        raise AssertionError("PHATDISK path never launched quad_gather")
+    I = x.ivals[:, 0]
+    if not ((I >= 0).all() and (I.max(0) > 0).all()):
+        raise AssertionError(f"PHATDISK I max {I.max(0)}")
+    print(f"phatdisk: I max {I.max(0)}, spectrum {x.spec[0]}")
+    return thin_launches, phat_launches
+
+
+def card_vs_cpu_phase():
+    """Phase 10: the hotspot, the disks and extra=1 on the card against
+    the port's CPU run."""
+    from grtrans_tpu_torch.api import Grtrans
+
+    small_disk = (32, 32, 1)
+    cases = {"hotspot 16x16x64 x 2 frames": hotspot_kwargs((16, 16, 64), 2),
+             "thin disk 32x32x1": disk_kwargs(small_disk, **THINDISK),
+             "phatdisk 32x32x1": disk_kwargs(small_disk, **PHATDISK)}
+    for name, kw in cases.items():
+        gpu = Grtrans(**kw).run().ivals
+        cpu = Grtrans(**kw).run(device="cpu").ivals
+        rel = np.abs(gpu - cpu).sum() / np.abs(cpu).sum()
+        print(f"{name}: card vs CPU rel L1 {rel:.3e} (bar {CPU_GPU_RTOL})")
+        if not rel <= CPU_GPU_RTOL:
+            raise AssertionError(f"{name}: card vs CPU rel L1 {rel}")
+
+    kw = dict(riaf_kwargs((16, 16, 64), "formal"), ename="POLSYNCHTH",
+              uout=0.0025, extra=1)
+    gpu = Grtrans(**kw).run().ivals
+    cpu = Grtrans(**kw).run(device="cpu").ivals
+    if gpu.shape != (256, 4 + 19, kw["nfreq"]):
+        raise AssertionError(f"bad extra=1 image {gpu.shape}")
+    rel = np.abs(gpu[:, :4] - cpu[:, :4]).sum() / np.abs(cpu[:, :4]).sum()
+    rel_x = np.abs(gpu[:, 4:] - cpu[:, 4:]).sum((0, 2)) \
+        / np.abs(cpu[:, 4:]).sum((0, 2))
+    print(f"RIAF 16x16x64 formal extra=1: card vs CPU rel L1 of Stokes "
+          f"{rel:.3e} (bar {CPU_GPU_RTOL}), of the 19 extra channels "
+          + " ".join(f"{v:.1e}" for v in rel_x)
+          + f" (bar {EXTRA_RTOL} each)")
+    if not (rel <= CPU_GPU_RTOL and (rel_x <= EXTRA_RTOL).all()):
+        raise AssertionError(f"extra=1: card vs CPU Stokes {rel}, extra "
+                             f"channels {rel_x}")
 
 
 def run(dev):
@@ -417,11 +560,17 @@ def run(dev):
             ("polsynchpl f64", 201, 2, 6, torch.float64)):
         err, times = check_kernel(qg, name, ns, nc, nf, dtype, dev)
         shapes[name] = dict(times, max_abs_err=err)
+    err, times = check_kernel(qg, "phatdisk f64", 500, 2, 101, torch.float64,
+                              dev, n=DISK_NN[0] * DISK_NN[1])
+    shapes["phatdisk f64"] = dict(times, max_abs_err=err)
     check_error_flag(qg, dev)
 
     ffjet_launches, frame_times = ffjet_phases(dev, qg)
     shapes["ffjet f64, frame's rows"] = frame_times
-    riaf_launches = riaf_phases(dev, qg, card)
+    riaf_launches = riaf_phases(dev, qg)
+    hotspot_launches = hotspot_phase(dev, qg)
+    thin_launches, phat_launches = disk_phase(dev, qg)
+    card_vs_cpu_phase()
 
     main = shapes["ffjet f64"]
     print(card)
@@ -429,9 +578,13 @@ def run(dev):
         "name": "quad_gather", "route": "cuda",
         "source": "grtrans_tpu_torch/csrc/quad_gather.cu",
         "replaces": "grtrans_tpu/ops/pallas_gather.py:49",
-        "launches": ffjet_launches + riaf_launches,
+        "launches": (ffjet_launches + riaf_launches + hotspot_launches
+                     + thin_launches + phat_launches),
         "launches_by_path": {"ffjet_flagship": ffjet_launches,
-                             "riaf_hybrid_lsoda": riaf_launches},
+                             "riaf_hybrid_lsoda": riaf_launches,
+                             "hotspot_light_curve": hotspot_launches,
+                             "thindisk_bbpol": thin_launches,
+                             "phatdisk_interp": phat_launches},
         "max_abs_err": main["max_abs_err"], "ms": main["kernel"],
         "plain_ms": main["plain"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library"],

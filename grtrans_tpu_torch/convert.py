@@ -6,7 +6,12 @@ import dataclasses
 
 from grtrans_tpu_torch.config import GrtransConfig
 from grtrans_tpu_torch.fluid.base import load_fluid_model
+from grtrans_tpu_torch.fluid.disks import NumDisk, PhatDisk
 from grtrans_tpu_torch.fluid.ffjet import FFJet
+from grtrans_tpu_torch.fluid.sphacc import SphAcc
+
+_ANALYTIC = ("HOTSPOT", "POWERLAW", "SARIAF", "SCHNITTMAN", "THINDISK", "TOY")
+_TABLE_MODELS = {"PHATDISK": PhatDisk, "NUMDISK": NumDisk, "SPHACC": SphAcc}
 
 
 def config_from_jax(cfg):
@@ -24,8 +29,20 @@ def ffjet_from_arrays(grids, fields, device, ntscl=2.0, nrscl=70.0):
 
 
 def analytic_from_fields(name, fields, device):
-    """The port's POWERLAW / SARIAF / TOY model on `device` from a dict of
-    the grtrans_tpu dataclass's fields (dataclasses.asdict of it)."""
-    if name.upper() not in ("POWERLAW", "SARIAF", "TOY"):
+    """The port's analytic model `name` (one of _ANALYTIC) on `device`
+    from a dict of the grtrans_tpu dataclass's fields
+    (dataclasses.asdict of it)."""
+    if name.upper() not in _ANALYTIC:
         raise NotImplementedError(f"no analytic model {name!r} in the port")
     return load_fluid_model(name, device=device, **fields)
+
+
+def table_model_from_arrays(name, device, **tables):
+    """The port's PHATDISK, NUMDISK or SPHACC on `device` from the tables
+    of the grtrans_tpu model as numpy arrays, named as the port's class
+    takes them: PHATDISK freq_tab, r_tab, om_tab, fnu_tab; NUMDISK table
+    (the dict with nr, nphi, r, phi, T); SPHACC r_tab, v_tab, T_tab."""
+    cls = _TABLE_MODELS.get(name.upper())
+    if cls is None:
+        raise NotImplementedError(f"no table model {name!r} in the port")
+    return cls(**tables, device=device)

@@ -4,6 +4,18 @@ the observer's polarization basis and the Lorentz-invariant scalings
 
 import torch
 
+from grtrans_tpu_torch.emis.polsynch import NE
+
+
+def from_columns(columns):
+    """(..., NE) coefficient block, zero but for the given
+    {column: values}; the values broadcast against each other."""
+    shape = torch.broadcast_shapes(*(v.shape for v in columns.values()))
+    first = next(iter(columns.values()))
+    z = torch.zeros(shape, dtype=first.dtype, device=first.device)
+    return torch.stack([columns[i].expand(shape) if i in columns else z
+                        for i in range(NE)], dim=-1)
+
 
 def split_e(e):
     """(..., 11) coefficient block -> (j (..., 4), K (..., 7))."""
@@ -26,3 +38,9 @@ def invariant_emis(j, K, g):
     """Lorentz-invariant scalings j -> j g^2, K -> K / g
     (emis.f90:831-838)."""
     return j * (g * g)[..., None], K / g[..., None]
+
+
+def invariant_intensity(j, g, npow):
+    """I_nu / nu^npow scaling of thin-disk surface emission
+    (emis.f90:840-847)."""
+    return j * (g ** npow)[..., None]

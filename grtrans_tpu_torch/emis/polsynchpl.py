@@ -16,7 +16,7 @@ import torch
 
 from grtrans_tpu_torch import constants as pc
 from grtrans_tpu_torch.ops.intcast import trunc_clip
-from grtrans_tpu_torch.ops.quad_gather import quad_gather
+from grtrans_tpu_torch.ops.quad_gather import pair_rows, quad_gather
 
 NX = 201           # log-x table resolution (20 per decade)
 NP = 131           # p step 0.05: 3.0, 3.5 and 7.0 are exact nodes
@@ -87,9 +87,8 @@ def _g_all(x, p):
     blends them with weights (1 - wx, wx), then exp."""
     lx = torch.log(x.clamp(X_LO, X_HI))
     rows = _g_rows(p)
-    pair = np.concatenate([rows, np.concatenate([rows[1:], rows[-1:]])],
-                          axis=-1)                              # (NX, 12)
-    pair = torch.as_tensor(pair, dtype=lx.dtype, device=lx.device)
+    pair = torch.as_tensor(pair_rows(rows), dtype=lx.dtype,
+                           device=lx.device)                    # (NX, 12)
     ix, wx = _xweight(lx)
     w = torch.stack([1 - wx, wx], dim=-1).reshape(-1, 2)
     v = quad_gather(pair, ix.reshape(-1), w, 2, 6)

@@ -1,11 +1,10 @@
-"""Analytic fluid models: POWERLAW, SARIAF, TOY.  Port of
-grtrans_tpu/fluid/analytic.py (reference fluid_model_powerlaw.f90,
-fluid_model_sariaf.f90, fluid_model_toy.f90 and their get_*_fluidvars /
-convert_fluidvars_* in fluid.f90).
+"""Analytic fluid models: THINDISK, POWERLAW, SARIAF, TOY.  Port of
+grtrans_tpu/fluid/analytic.py (reference fluid_model_thindisk.f90,
+fluid_model_powerlaw.f90, fluid_model_sariaf.f90, fluid_model_toy.f90 and
+their get_*_fluidvars / convert_fluidvars_* in fluid.f90).
 
 A model carries only numbers; `device` names where its samples live, and
-`vals` refuses a bundle that lies elsewhere.  THINDISK is not ported: it
-needs the standard=2 single-point branch of render_rays."""
+`vals` refuses a bundle that lies elsewhere."""
 
 import math
 from dataclasses import dataclass, field
@@ -30,6 +29,66 @@ def _check_device(model, x):
             want.index is not None and x.device.index != want.index):
         raise ValueError(f"{type(model).__name__} was made for "
                          f"{model.device}, the rays lie on {x.device}")
+
+
+def keplerian_omega(r, th, a):
+    """Angular velocity of the disk flow: Keplerian outside the ISCO, the
+    plunging geodesic's inside, never below the frame dragging rate
+    (fluid_model_thindisk.f90:66-80)."""
+    rms = kerr.calc_rms(a)
+    d = r * r - 2.0 * r + a * a
+    lc = (rms * rms - 2.0 * a * math.sqrt(rms) + a * a) \
+        / (rms ** 1.5 - 2.0 * math.sqrt(rms) + a)
+    hc = (2.0 * r - a * lc) / d
+    ar = (r * r + a * a) ** 2 - a * a * d * th.sin() ** 2
+    om = 2.0 * a * r / ar
+    return torch.where(r > rms,
+                       torch.maximum(1.0 / (r ** 1.5 + a), om),
+                       torch.maximum((lc + a * hc)
+                                     / (r * r + 2.0 * r * (1.0 + hc)), om))
+
+
+@base.register("THINDISK")
+@dataclass
+class ThinDisk:
+    """Novikov-Thorne thin disk: T(r) from the Page-Thorne flux through
+    krolikc, Keplerian rotation outside the ISCO
+    (fluid_model_thindisk.f90:51-86, fluid.f90:586-620)."""
+    a: float = 0.998
+    mbh: float = 10.0
+    mdot: float = 0.1      # in Eddington units
+    rin: float = 0.0
+    rout: float = 1e5
+    npow: int = 3
+    device: Any = field(kw_only=True)
+
+    def vals(self, x, k, a):
+        _check_device(self, x)
+        r = x[..., 1]
+        th = x[..., 2]
+        rin = max(kerr.calc_rms(a), self.rin)
+        b = 1.0 - 3.0 / r + 2.0 * a / r ** 1.5
+        kc = kerr.krolikc(r, a)
+        lbh = pc.lbh(self.mbh)
+        mdotedd = pc.ledd(self.mbh) / pc.c2
+        T0 = (3.0 / 8.0 / math.pi * pc.G * self.mbh * pc.msun * self.mdot
+              * mdotedd / lbh ** 3 / pc.sigb) ** 0.25
+        T = torch.where((r > rin) & (r < self.rout),
+                        T0 * (kc / b / r ** 3).clamp_min(0.0) ** 0.25,
+                        T0 / 1e5)
+        g = kerr.metric_cov(r, th, a)
+        z = torch.zeros_like(r)
+        u = _u_from_3vel(g, z, z, keplerian_omega(r, th, a))
+        # polarization normal: the disk-frame basis vector at psi = pi/2
+        # (fluid.f90:612-613)
+        bvec = kerr.calc_polvec(r, th.cos(), k, a, math.pi / 2.0)
+        return FluidVars(rho=T, p=z, bmag=z, u=u, b=bvec, rho2=z)
+
+    def convert(self, fv, sp):
+        """tcgs = T, ncgs = 1 (fluid.f90:1190-1196)."""
+        one = torch.ones_like(fv.rho)
+        return EmisInputs(ncgs=one, tcgs=fv.rho, bcgs=one,
+                          ncgsnth=torch.zeros_like(fv.rho))
 
 
 @base.register("POWERLAW")

@@ -2,8 +2,10 @@
 parameters and the model registry (reference fluid.f90:49-75, 163-584).
 
 A model is an object with `vals(x, k, a) -> FluidVars` and
-`convert(fv, sp) -> EmisInputs`, both over (npix, npts) tensors.
-Registered: FFJET, POWERLAW, SARIAF, TOY."""
+`convert(fv, sp) -> EmisInputs`, both over (npix, npts) tensors; a model
+with `timedep = True` takes the frame's time as `vals(x, k, a, time=t)`.
+Registered: FFJET, HOTSPOT, NUMDISK, PHATDISK, POWERLAW, SARIAF,
+SCHNITTMAN, SPHACC, THINDISK, TOY."""
 
 import math
 from dataclasses import dataclass
@@ -24,6 +26,8 @@ class FluidVars(NamedTuple):
     u: torch.Tensor       # four-velocity (BL, contravariant)
     b: torch.Tensor       # magnetic four-vector (BL)
     rho2: torch.Tensor    # secondary density (nonthermal electrons)
+    fnu: Optional[torch.Tensor] = None    # tabulated F_nu (PHATDISK)
+    nbins: Optional[torch.Tensor] = None  # nonthermal electron bins
 
 
 class EmisInputs(NamedTuple):
@@ -32,6 +36,12 @@ class EmisInputs(NamedTuple):
     tcgs: torch.Tensor
     bcgs: torch.Tensor
     ncgsnth: torch.Tensor
+    fnu: Optional[torch.Tensor] = None       # (npix, npts, nfreq_tab)
+    freq_tab: Optional[torch.Tensor] = None  # (nfreq_tab,)
+    # binned nonthermal electron populations (SYNCHBIN)
+    nbins: Optional[torch.Tensor] = None     # (npix, npts, nbin) [cm^-3]
+    gammas: Optional[torch.Tensor] = None    # (nbin,) bin centers
+    dgammas: Optional[torch.Tensor] = None   # (nbin,) bin widths
 
 
 @dataclass
@@ -154,7 +164,8 @@ def register(name):
 def load_fluid_model(name, *, device, **kwargs):
     """Instantiate a fluid model by fname on `device`
     (fluid.f90:163-243)."""
-    from grtrans_tpu_torch.fluid import analytic, ffjet  # noqa: F401
+    from grtrans_tpu_torch.fluid import (analytic, disks, ffjet,  # noqa: F401
+                                         hotspot, sphacc)
     factory = _REGISTRY.get(name.upper())
     if factory is None:
         raise NotImplementedError(

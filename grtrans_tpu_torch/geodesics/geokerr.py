@@ -1,6 +1,7 @@
 """Semi-analytic Kerr null geodesics, batched over (pixel, point).
 
-Port of the float64 `trace` of grtrans_tpu/geodesics/geokerr.py (a
+Port of the float64 `trace`, `trace_polar` and `camera_delay` of
+grtrans_tpu/geodesics/geokerr.py (a
 redesign of the reference geokerr, Dexter & Agol 2009): rays are sampled
 evenly in Mino time; u(lam) and mu(lam) come from one Biermann-Weierstrass
 inversion each (ops/weierstrass.py); t, phi and the affine parameter are
@@ -299,31 +300,46 @@ def _blocked_cumsum(s):
     return (off[..., None] + within).reshape(s.shape)[..., :n]
 
 
-def _cumulative_phases(st, a, l, lam_grid, u_grid, mu_grid):
+def _cumulative_phases(st, a, l, lam_grid, u_grid=None, mu_grid=None,
+                       node_interp=False):
     """Cumulative (t, phi, affine) along lam_grid, per-segment GL.
 
-    The polar parts are integrated in Mino time, with mu at the nodes from
-    cubic Hermite interpolation of the grid samples (dmu/dlam = +-sqrt(M)
-    is closed-form).  The radial parts behave like r^2 ~ 1/lam^2 near the
-    observer, so they are integrated in ln r, except on segments next to
-    the radial turning point, which keep the lam-space rule.  On trace()'s
-    uniform grid those segments sit at static indices (the turn is the
-    grid midpoint; a grazing plunge turns just past the end), so the
-    lam-space rule is evaluated only on a window there."""
+    The polar parts are integrated in Mino time.  The radial parts behave
+    like r^2 ~ 1/lam^2 near the observer, so they are integrated in ln r,
+    except on segments next to the radial turning point, which keep the
+    lam-space rule.
+
+    node_interp=True (dense grids: trace()): u and mu at the nodes come
+    from cubic Hermite interpolation of the grid samples (du/dlam =
+    +-sqrt(U), dmu/dlam = +-sqrt(M) are closed-form).  On trace()'s
+    uniform grid the segments next to the turn sit at static indices (the
+    turn is the grid midpoint; a grazing plunge turns just past the end),
+    so the lam-space rule is evaluated only on a window there.  Sparse
+    grids (trace_polar, camera_delay) keep node_interp=False: exact
+    Weierstrass evaluation at every node, both rules on every segment."""
     x, w = _gl(NQ_SEG, lam_grid)
     a_ = lam_grid[..., :-1]
     b_ = lam_grid[..., 1:]
     dseg = b_ - a_
-    su_g, smu_g, _, _ = _signs_and_counts(st, lam_grid)
-    nd = u_grid.dim()
-    du_g = su_g * _u_eval(st.cU, u_grid).clamp_min(0.0).sqrt()
-    cM = st.cM
-    Mv = ((_bc(cM[4], nd) * mu_grid ** 2 + _bc(cM[2], nd)) * mu_grid ** 2
-          + _bc(cM[0], nd))
-    dmu_g = smu_g * Mv.clamp_min(0.0).sqrt()
-    mun = _hermite_nodes_ep(mu_grid[..., :-1], mu_grid[..., 1:],
-                            dmu_g[..., :-1], dmu_g[..., 1:], dseg,
-                            x).clamp(-1.0, 1.0)
+    nd = lam_grid.dim()
+    if u_grid is None:
+        u_grid = _eval_u(st, lam_grid)
+    if node_interp:
+        if mu_grid is None:
+            mu_grid = _eval_mu(st, lam_grid)
+        su_g, smu_g, _, _ = _signs_and_counts(st, lam_grid)
+        du_g = su_g * _u_eval(st.cU, u_grid).clamp_min(0.0).sqrt()
+        cM = st.cM
+        Mv = ((_bc(cM[4], nd) * mu_grid ** 2 + _bc(cM[2], nd))
+              * mu_grid ** 2 + _bc(cM[0], nd))
+        dmu_g = smu_g * Mv.clamp_min(0.0).sqrt()
+        mun = _hermite_nodes_ep(mu_grid[..., :-1], mu_grid[..., 1:],
+                                dmu_g[..., :-1], dmu_g[..., 1:], dseg,
+                                x).clamp(-1.0, 1.0)
+    else:
+        nodes = a_[..., None] + dseg[..., None] * x      # (npix, nseg, nq)
+        un = _eval_u(st, nodes)
+        mun = _eval_mu(st, nodes)
     l_ = _bc(l, nd + 1)
 
     # polar parts: lam space everywhere
@@ -334,7 +350,7 @@ def _cumulative_phases(st, a, l, lam_grid, u_grid, mu_grid):
 
     # radial parts, lam-space rule (windowed on long grids)
     nseg = dseg.shape[-1]
-    windowed = nseg >= 4 * _PHASE_WIN
+    windowed = node_interp and nseg >= 4 * _PHASE_WIN
     if windowed:
         mid = nseg // 2
         widx = np.unique(np.clip(np.concatenate([
@@ -347,8 +363,9 @@ def _cumulative_phases(st, a, l, lam_grid, u_grid, mu_grid):
                                dseg[..., wi], x)
         dsl = dseg[..., wi]
     else:
-        un = _hermite_nodes_ep(u_grid[..., :-1], u_grid[..., 1:],
-                               du_g[..., :-1], du_g[..., 1:], dseg, x)
+        if node_interp:
+            un = _hermite_nodes_ep(u_grid[..., :-1], u_grid[..., 1:],
+                                   du_g[..., :-1], du_g[..., 1:], dseg, x)
         dsl = dseg
     dt_r, dph_r, daff_r = _phase_integrands_radial(a, l_, un)
     lam_t = (dt_r * w).sum(-1) * dsl
@@ -424,7 +441,8 @@ def trace(a, mu0, alpha, beta, l, q2, sm, u0, npts, uout=None, phi0=0.0):
     u = _eval_u(st, lam)
     mu = _eval_mu(st, lam).clamp(-1.0, 1.0)
     su, smu, tpr, tpm = _signs_and_counts(st, lam)
-    dt_c, dph_c, aff_c = _cumulative_phases(st, a, l, lam, u, mu)
+    dt_c, dph_c, aff_c = _cumulative_phases(st, a, l, lam, u, mu,
+                                            node_interp=True)
 
     r = 1.0 / u.clamp_min(1e-12)
     th = torch.arccos(mu)
@@ -438,5 +456,59 @@ def trace(a, mu0, alpha, beta, l, q2, sm, u0, npts, uout=None, phi0=0.0):
     x = torch.stack([t, r, th, phi], dim=-1)
     valid = (u > 0.0) & (u < uf * (1 + 10 * HOR_EPS)) & torch.isfinite(u)
     status = torch.isfinite(u).all(-1).to(torch.int32)
+    return GeodesicBundle(x=x, k=k, lam=aff_c, mino=lam, tpm=tpm, tpr=tpr,
+                          valid=valid, status=status)
+
+
+def camera_delay(a, mu0, alpha, beta, l, q2, sm, u0, uout):
+    """Per-ray coordinate-time delay from the camera (u0) to the trace
+    start (uout), which trace(uout=...) leaves out of its t coordinate
+    (the slow-light t0 pre-pass; reference geodesics.f90:113-128,
+    pgrtrans.f90:177-191).  Returns (npix,)."""
+    st, _ = _setup(a, mu0, l, q2, sm, u0)
+    uo = torch.minimum(torch.full_like(l, uout), st.u_turn * (1 - 1e-9))
+    lam_start = _lam_of_u(st.cU, st.u0, torch.maximum(uo, st.u0))
+    grid = torch.stack([torch.zeros_like(lam_start), lam_start], dim=-1)
+    dt_c, _, _ = _cumulative_phases(st, a, l, grid)
+    return dt_c[..., -1]
+
+
+def trace_polar(a, mu0, alpha, beta, l, q2, sm, u0, npts=1, phi0=0.0,
+                crossing=1):
+    """Trace to the `crossing`-th crossing of the equatorial plane
+    (reference standard=2, thin-disk imaging).  npts=1 returns the
+    crossing point alone; npts>1 samples evenly in Mino time from just
+    after the observer to the crossing.  Rays that never cross are
+    invalid and have status 0."""
+    st, uf = _setup(a, mu0, l, q2, sm, u0)
+    lam_eq = st.lam_eq + (crossing - 1) * st.half
+    hit = torch.isfinite(lam_eq)
+    lam_eq_safe = torch.where(hit, lam_eq, 1.0)
+
+    # i / npts for i = 1..npts: the observer's point is left out
+    frac = torch.arange(1, npts + 1, dtype=l.dtype, device=l.device) / npts
+    lam = lam_eq_safe[:, None] * frac[None, :]
+
+    u = _eval_u(st, lam)
+    mu = _eval_mu(st, lam).clamp(-1.0, 1.0)
+    # exactly the equator at the last point
+    mu = torch.cat([mu[..., :-1],
+                    torch.where(hit, 0.0, mu[..., -1])[..., None]], dim=-1)
+    su, smu, tpr, tpm = _signs_and_counts(st, lam)
+
+    grid = torch.cat([torch.zeros_like(lam[..., :1]), lam], dim=-1)
+    dt_c, dph_c, aff_c = (c[..., 1:]
+                          for c in _cumulative_phases(st, a, l, grid))
+
+    r = 1.0 / u.clamp_min(1e-12)
+    th = torch.arccos(mu)
+    t = -dt_c
+    phi = math.pi * phi0 - dph_c
+    if abs(mu0) == 1.0:
+        phi = phi + math.copysign(1.0, mu0) * torch.atan2(beta, alpha)[:, None]
+    k = kerr.calc_nullp(q2[:, None], l[:, None], a, r, mu, su, smu)
+    x = torch.stack([t, r, th, phi], dim=-1)
+    valid = hit[:, None] & (u > 0.0) & (u < uf) & torch.isfinite(u)
+    status = valid[..., -1].to(torch.int32)
     return GeodesicBundle(x=x, k=k, lam=aff_c, mino=lam, tpm=tpm, tpr=tpr,
                           valid=valid, status=status)

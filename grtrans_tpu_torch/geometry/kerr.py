@@ -1,11 +1,15 @@
 """Kerr spacetime in Boyer-Lindquist coordinates: metrics, the LNRF
 frame and null wavevectors.  Elementwise maps over tensors; the spin `a`
 is a Python float.  Port of the parts of grtrans_tpu/geometry/kerr.py on
-the render path (reference kerr.f90:255-474)."""
+the render path (reference kerr.f90: krolikc :109, calcg :181, calc_nullp
+:255, metrics :337-400, LNRF frame :402-474, calc_polar_psi :954,
+calc_polvec :998, calc_kappapw :1047, plunging flow :1120-1190)."""
 
 import math
 
 import torch
+
+from grtrans_tpu_torch.geometry import fourvector as fv
 
 
 def safe_sqrt(x):
@@ -86,6 +90,25 @@ def calc_rms_constants(a):
     return ems, lms, rms
 
 
+def krolikc(r, a):
+    """Page-Thorne / Krolik flux correction factor of the thin disk
+    (kerr.f90:109-129).  The roots y1..y3 depend on the spin alone and
+    stay Python floats."""
+    yms = math.sqrt(calc_rms(a))
+    y = r.sqrt()
+    y1 = 2.0 * math.cos((math.acos(a) - math.pi) / 3.0)
+    y2 = 2.0 * math.cos((math.acos(a) + math.pi) / 3.0)
+    y3 = -2.0 * math.cos(math.acos(a) / 3.0)
+    arg1 = 3.0 * a / (2.0 * y)
+    arg2 = 3.0 * (y1 - a) ** 2 / (y * y1 * (y1 - y2) * (y1 - y3))
+    arg3 = 3.0 * (y2 - a) ** 2 / (y * y2 * (y2 - y1) * (y2 - y3))
+    arg4 = 3.0 * (y3 - a) ** 2 / (y * y3 * (y3 - y1) * (y3 - y2))
+    return (1.0 - yms / y - arg1 * torch.log(y / yms)
+            - arg2 * torch.log((y - y1) / (yms - y1))
+            - arg3 * torch.log((y - y2) / (yms - y2))
+            - arg4 * torch.log((y - y3) / (yms - y3)))
+
+
 def _lnrf_factors(r, mu, a):
     d = r * r - 2.0 * r + a * a
     ar = (r * r + a * a) ** 2 - a * a * d * (1.0 - mu * mu)
@@ -120,6 +143,26 @@ def lnrf_frame_inv(vrl, vtl, vpl, r, a, th):
     ok = d > 0.0
     return (torch.where(ok, vr, 0.0), torch.where(ok, vt, 0.0),
             torch.where(ok, omega, 0.0))
+
+
+def calcg(u, mu, q2, l, a, tpm, tpr, su, sm, vrl, vtl, vpl):
+    """Redshift g of a photon with constants (q2, l) that meets gas of
+    LNRF velocity (vrl, vtl, vpl) (kerr.f90:181-218).  tpm, tpr are
+    integer tensors of turning-point counts."""
+    r = 1.0 / u
+    d, ar, rho, enu, emu1, emu2, epsi, om = _lnrf_factors(r, mu, a)
+    sr = (1.0 - 2.0 * (tpr % 2).to(u.dtype)) * su
+    st = -(1.0 - 2.0 * (tpm % 2).to(u.dtype)) * sm
+    omega = torch.where(epsi != 0.0, enu / epsi * vpl + om, 0.0)
+    gam = 1.0 / (1.0 - (vrl ** 2 + vtl ** 2 + vpl ** 2)).sqrt()
+    rr = (-a * a * q2 * u ** 4 + 2.0 * u ** 3 * (q2 + (a - l) ** 2)
+          + u * u * (a * a - q2 - l * l) + 1.0)
+    tt = (q2 + mu * mu * (a * a - l * l - q2) - a * a * mu ** 4) \
+        / (1.0 - mu * mu)
+    tt = safe_sqrt(tt)
+    rr = safe_sqrt(rr) * r * r
+    return enu / gam / (1.0 - l * omega - emu1 * enu * vrl / rho * sr * rr
+                        - emu2 * enu * vtl / rho * st * tt)
 
 
 def calc_nullp(q2, l, a, r, mu, su, smu):
@@ -185,3 +228,71 @@ def rms_vel(a, th, r):
     vr, vt, om = lnrf_frame_inv(vrl, vtl, vpl, r, a, th)
     u0 = calc_u0(metric_cov(r, th, a), vr, vt, om)
     return torch.stack([u0, u0 * vr, u0 * vt, u0 * om], dim=-1)
+
+
+def calc_polvec(r, mu, p, a, psi):
+    """Thin-disk polarization basis vector (f^0 = 0 convention, Agol 1997)
+    rotated by the angle psi (a number) in the disk frame
+    (kerr.f90:998-1045).  Divides by the local photon energy ptt and by
+    sqrt(Delta): NaN or inf inside the horizon and where ptt = 0, which
+    callers mask."""
+    d = r ** 2 - 2.0 * r + a ** 2
+    ar = (r * r + a * a) ** 2 - a * a * d * (1.0 - mu * mu)
+    om = 2.0 * a * r / ar
+    rho = r ** 2 + a ** 2 * mu ** 2
+    ptt = r * (d / ar).sqrt() * p[..., 0]
+    prt = r / d.sqrt() * p[..., 1]
+    ptht = r * p[..., 2]
+    ppht = ar.sqrt() / r * (p[..., 3] - om * p[..., 0])
+    vel = 1.0 / (r ** 1.5 + a)
+    epsi = (1.0 - mu * mu).sqrt() * (ar / rho).sqrt()
+    enu = (d * rho / ar).sqrt()
+    vel = epsi / enu * (vel - om)
+    frl = d.sqrt() / r * (vel * (ptt - prt ** 2 / ptt) - ppht)
+    fthl = -vel * prt * ptht / ptt / r
+    fphl = r * prt / ar.sqrt() * (1.0 - vel * ppht / ptt)
+    frp = d.sqrt() * ptht * prt / r * (-1.0 + vel * ppht / ptt)
+    fthp = 1.0 / r * (prt ** 2 + (1.0 + vel ** 2) * ppht ** 2
+                      - 2.0 * vel * ppht * ptt + vel * ptht ** 2 * ppht / ptt)
+    fphp = r * ptht / ar.sqrt() * (-(1.0 + vel ** 2) * ppht + vel * ptt
+                                   + vel * ppht ** 2 / ptt)
+    cpsi, spsi = math.cos(psi), math.sin(psi)
+    fr = cpsi * frl + spsi * frp
+    fth = cpsi * fthl + spsi * fthp
+    fph = cpsi * fphl + spsi * fphp
+    f = torch.stack([torch.zeros_like(fr), fr, fth, fph], dim=-1)
+    norm = fv.dot(metric_cov(r, torch.arccos(mu), a), f, f)
+    return f / norm.sqrt()[..., None]
+
+
+def calc_kappapw(a, r, mu, p, f):
+    """Complex Walker-Penrose constant (re, im) of a vector f
+    perpendicular to p (kerr.f90:1047-1064)."""
+    alpha = (p[..., 0] * f[..., 1] - p[..., 1] * f[..., 0]) \
+        + a * (1.0 - mu ** 2) * (p[..., 1] * f[..., 3] - p[..., 3] * f[..., 1])
+    beta = (r ** 2 + a ** 2) * (1.0 - mu ** 2).sqrt() \
+        * (p[..., 3] * f[..., 2] - p[..., 2] * f[..., 3]) \
+        - a * (1.0 - mu ** 2).sqrt() * (p[..., 0] * f[..., 2]
+                                        - p[..., 2] * f[..., 0])
+    # kappa = (alpha - i beta)(r - i a mu)
+    re = alpha * r - beta * a * mu
+    im = -(alpha * a * mu + beta * r)
+    return re, im
+
+
+def calc_polar_psi(r, muf, q2, a, alpha, beta, rshift, mus, p):
+    """Doubled thin-disk polarization angle (c2psi, s2psi) and the
+    emission cosine for electron-scattering polarization
+    (kerr.f90:954-996).  mus, the observer's cosine, is a number."""
+    f = calc_polvec(r, muf, p, a, 0.0)
+    kre, kim = calc_kappapw(a, r, muf, p, f)
+    kappa2 = kre
+    kappa1 = -kim
+    gammac = -alpha - a * (1.0 - mus ** 2)
+    den = beta * kappa2 - gammac * kappa1
+    num = -beta * kappa1 - gammac * kappa2
+    polarpsi = torch.atan2(den, num)
+    s2psi = torch.sin(2.0 * polarpsi)
+    c2psi = torch.cos(2.0 * polarpsi)
+    cosne = rshift * safe_sqrt(q2) / r
+    return c2psi, s2psi, cosne

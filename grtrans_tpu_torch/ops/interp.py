@@ -9,8 +9,8 @@ def get_weight(xarr, x):
     xarr[ix] <= x <= xarr[ix+1] (ix clamped to [0, n-2]) and w the linear
     weight of xarr[ix+1]."""
     n = xarr.shape[0]
-    ix = (torch.searchsorted(xarr, x, right=True).to(torch.int32) - 1
-          ).clamp(0, n - 2)
+    ix = (torch.searchsorted(xarr, x.contiguous(), right=True)
+          .to(torch.int32) - 1).clamp(0, n - 2)
     x0 = xarr[ix]
     x1 = xarr[ix + 1]
     w = (x - x0) / torch.where(x1 == x0, 1.0, x1 - x0)

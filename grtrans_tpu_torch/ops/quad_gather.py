@@ -26,6 +26,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -36,6 +37,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _err_flags = {}
+
+
+def pair_rows(rows):
+    """(n, f) numpy table -> (n, 2 f): row i holds rows i and i + 1, the
+    packing of a linear interpolation along the rows (nc = 2, nf = f).
+    The last row repeats itself; cell indices stop at n - 2, so its second
+    half is never weighted in."""
+    return np.concatenate([rows, np.concatenate([rows[1:], rows[-1:]])],
+                          axis=1)
 
 
 def quad_gather_ref(table, idx, w, nc, nf):

@@ -36,19 +36,21 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
     grtrans_tpu.orchestrator.grtrans_run: the geodesics and the sampled
     fluid of a mu-camera (or of one of its pixel blocks) are always traced
     once and reused by every (time, mdot) render of it, whatever its
-    value.  Returns (ivals, ab, freqs): ivals (ncams, npix, nvals) and ab
-    (2, npix) tensors on `device`, freqs the numpy frequency grid."""
+    value; a time-dependent model (model.timedep) is sampled anew for
+    each frame, at time = it * cfg.dt.  standard=2 traces each ray to its
+    first crossing of the equatorial plane and renders that one point.
+    Returns (ivals, ab, freqs): ivals (ncams, npix, nvals [+ 19 for
+    extra=1]) and ab (2, npix) tensors on `device`, freqs the numpy
+    frequency grid."""
     if unported:
         raise NotImplementedError(
             f"grtrans_run options not ported: {sorted(unported)}")
-    if getattr(model, "timedep", False) or (
-            cfg.nload > 1 and getattr(model, "nt_slices", 1) > 1):
-        raise NotImplementedError("time-dependent fluids are not ported")
+    if cfg.nload > 1 and getattr(model, "nt_slices", 1) > 1:
+        # slow light samples a fluid time series at retarded times
+        raise NotImplementedError(
+            f"nload={cfg.nload} on a time series (slow light) is not ported")
     if cfg.prec != "f64":
         raise NotImplementedError(f"prec={cfg.prec!r} is not ported")
-    if cfg.standard != 1:
-        raise NotImplementedError(
-            f"standard={cfg.standard!r} (trace_polar) is not ported")
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be a positive pixel count, got {chunk}")
     a = cfg.spin
@@ -59,6 +61,7 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
     mus = cfg.mus()
     if model is None:
         model = load_fluid_model(cfg.fname, device=device, **cfg.fargs)
+    timedep = getattr(model, "timedep", False)
 
     def camera(mu0):
         return cam_mod.make_camera(a, float(mu0), a1, a2, b1, b2, nro, nphi,
@@ -85,13 +88,19 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
         for lo in range(0, npix, step):
             blk = slice(lo, lo + step)
             alpha, beta = cam.alpha[blk], cam.beta[blk]
-            geo = geokerr.trace(a, float(mu0), alpha, beta, cam.l[blk],
-                                cam.q2[blk], cam.sm[blk], cam.u0, nup,
-                                uout=cfg.uout if use_uout else None,
-                                phi0=cfg.phi0)
-            fv = model.vals(geo.x, geo.k, a)
+            ray = (a, float(mu0), alpha, beta, cam.l[blk], cam.q2[blk],
+                   cam.sm[blk], cam.u0)
+            if cfg.standard == 2:
+                geo = geokerr.trace_polar(*ray, npts=1, phi0=cfg.phi0)
+            else:
+                geo = geokerr.trace(*ray, nup, phi0=cfg.phi0,
+                                    uout=cfg.uout if use_uout else None)
+            if not timedep:
+                fv = model.vals(geo.x, geo.k, a)
             renders = iter(scan)
-            for _ in range(cfg.nt):
+            for it in range(cfg.nt):
+                if timedep:
+                    fv = model.vals(geo.x, geo.k, a, time=it * cfg.dt)
                 for mdot in cfg.mdots():
                     sp = _source_params(cfg, float(mdot))
                     ei = model.convert(fv, sp)
@@ -99,6 +108,6 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
                         geo, fv, ei, cfg.ename, freq_list, float(mu0), alpha,
                         beta, a, cfg.mbh, sp, iname=cfg.iname,
                         nvals=cfg.nvals, standard=cfg.standard,
-                        extra=cfg.extra, debug=cfg.debug))
+                        extra=cfg.extra))
         ivals.extend(torch.cat(parts, dim=1) for parts in scan)
     return torch.cat(ivals, dim=0), ab, freqs

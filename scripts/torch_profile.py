@@ -1,19 +1,24 @@
 """Where the time goes in one warm frame of the PyTorch port.
 
-    python3 scripts/torch_profile.py [--config ffjet|sariaf]
+    python3 scripts/torch_profile.py [--config ffjet|sariaf|hotspot|thindisk]
                                      [--nn 100 100 400] [--out FILE]
 
 Renders one configuration in float64 on one CUDA card: `ffjet`, the
 FFJET/POLSYNCHPL flagship with the formal integrator (synthetic dump at
-the real table size), or `sariaf`, the Sgr A* RIAF (SARIAF + HYBRIDTHPL,
-lsoda integrator, three frequencies).  A warm-up frame, one whole frame,
-then its stages one by one (geodesic trace, fluid sampling, render_rays,
-and the Stokes march of the last frequency inside render_rays on its
-own), each under torch.profiler.  Prints one JSON object (also written to --out): per stage
-the host wall time (inflated by the profiler's per-op cost), the device
-busy time (sum of kernel durations on the card), the idle share
-1 - busy / wall, the number of kernel launches, and the kernels with the
-most device time.  Needs a CUDA device; fails without one.
+the real table size); `sariaf`, the Sgr A* RIAF (SARIAF + HYBRIDTHPL,
+lsoda integrator, three frequencies); `hotspot`, one frame of the
+Broderick & Loeb (2006) orbiting spot (HOTSPOT + POLSYNCHPL, formal); or
+`thindisk`, the polarized thin disk (THINDISK + BBPOL, standard=2: one
+point a ray, four frequencies, 1024x1024 pixels unless --nn says
+otherwise).  A warm-up frame, one whole frame, then its stages one by one
+(geodesic trace, fluid sampling, render_rays, and, where rays are
+integrated, the Stokes march of the last frequency inside render_rays on
+its own), each under torch.profiler.  Prints one JSON object (also
+written to --out): per stage the host wall time (inflated by the
+profiler's per-op cost), the device busy time (sum of kernel durations on
+the card), the idle share 1 - busy / wall, the number of kernel launches,
+and the kernels with the most device time.  Needs a CUDA device; fails
+without one.
 """
 
 import argparse
@@ -64,7 +69,29 @@ def sariaf_setup(nn, dev):
     return cfg, load_fluid_model(cfg.fname, device=dev, **cfg.fargs)
 
 
-SETUPS = {"ffjet": ffjet_setup, "sariaf": sariaf_setup}
+def hotspot_setup(nn, dev):
+    """(config, model) of the orbiting hotspot, one frame."""
+    cfg = GrtransConfig(
+        fname="HOTSPOT", ename="POLSYNCHPL", nvals=4, spin=0.9, standard=1,
+        nn=nn, mbh=4e6, mumin=0.5, mumax=0.5, fmin=2.3e11, fmax=2.3e11,
+        iname="formal", gridvals=(-12.0, 12.0, -12.0, 12.0),
+        fargs=dict(rspot=1.5, r0spot=6.0, n0spot=4e7))
+    return cfg, load_fluid_model(cfg.fname, device=dev, **cfg.fargs)
+
+
+def thindisk_setup(nn, dev):
+    """(config, model) of the polarized thin disk."""
+    cfg = GrtransConfig(
+        fname="THINDISK", ename="BBPOL", nvals=4, spin=0.9, standard=2,
+        nn=nn, uout=0.01, mbh=10.0, mumin=0.26, mumax=0.26, nfreq=4,
+        fmin=2.41e16, fmax=6.31e18, gridvals=(-21.0, 21.0, -21.0, 21.0),
+        fargs=dict(mbh=10.0, mdot=0.1))
+    return cfg, load_fluid_model(cfg.fname, device=dev, **cfg.fargs)
+
+
+SETUPS = {"ffjet": ffjet_setup, "sariaf": sariaf_setup,
+          "hotspot": hotspot_setup, "thindisk": thindisk_setup}
+DEFAULT_NN = {"thindisk": (1024, 1024, 1)}
 
 
 def profiled(fn, top=8):
@@ -92,13 +119,14 @@ def profiled(fn, top=8):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(SETUPS), default="ffjet")
-    ap.add_argument("--nn", type=int, nargs=3, default=(100, 100, 400))
+    ap.add_argument("--nn", type=int, nargs=3, default=None)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    nro, nphi, npts = args.nn
+    nro, nphi, npts = args.nn or DEFAULT_NN.get(args.config,
+                                                (100, 100, 400))
     cfg, model = SETUPS[args.config]((nro, nphi, npts), dev)
     spin, mu0 = cfg.spin, cfg.mumin
     freqs = [float(f) for f in cfg.freqs()]
@@ -109,12 +137,17 @@ def main():
                              device=dev)
     sp = _source_params(cfg, float(cfg.mdotmin))
     stages = {}
-    geo, stages["trace"] = profiled(lambda: geokerr.trace(
-        spin, mu0, cam.alpha, cam.beta, cam.l, cam.q2, cam.sm, cam.u0, npts,
-        uout=cfg.uout if cfg.uout > cam.u0 * 1.0001 else None,
-        phi0=cfg.phi0))
+    ray = (spin, mu0, cam.alpha, cam.beta, cam.l, cam.q2, cam.sm, cam.u0)
+    if cfg.standard == 2:
+        geo, stages["trace_polar"] = profiled(lambda: geokerr.trace_polar(
+            *ray, npts=1, phi0=cfg.phi0))
+    else:
+        geo, stages["trace"] = profiled(lambda: geokerr.trace(
+            *ray, npts, phi0=cfg.phi0,
+            uout=cfg.uout if cfg.uout > cam.u0 * 1.0001 else None))
+    frame_time = dict(time=0.0) if getattr(model, "timedep", False) else {}
     fv, stages["fluid_vals"] = profiled(
-        lambda: model.vals(geo.x, geo.k, spin))
+        lambda: model.vals(geo.x, geo.k, spin, **frame_time))
     ei = model.convert(fv, sp)
 
     # the Stokes march is profiled on its own, on the arguments that
@@ -130,12 +163,14 @@ def main():
     try:
         _, stages["render_rays"] = profiled(lambda: driver.render_rays(
             geo, fv, ei, cfg.ename, freqs, mu0, cam.alpha, cam.beta, spin,
-            cfg.mbh, sp, iname=cfg.iname))
+            cfg.mbh, sp, iname=cfg.iname, nvals=cfg.nvals,
+            standard=cfg.standard))
     finally:
         solvers.observed_stokes = observed_stokes
-    a, k = captured["args"]
-    _, stages["observed_stokes (one frequency, part of render_rays)"] = \
-        profiled(lambda: observed_stokes(*a, **k))
+    if captured:                  # a single-point render integrates nothing
+        a, k = captured["args"]
+        _, stages["observed_stokes (one frequency, part of render_rays)"] \
+            = profiled(lambda: observed_stokes(*a, **k))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()

@@ -1,6 +1,7 @@
 """Parity of the port's analytic fluids (POWERLAW, SARIAF with both bl06
-branches, TOY) and their Kerr helpers with grtrans_tpu, on a seeded bundle
-of points that crosses the ISCO and the models' window edges.
+branches, TOY; THINDISK is in tests/test_torch_disks.py) and their Kerr
+helpers with grtrans_tpu, on a seeded bundle of points that crosses the
+ISCO and the models' window edges.
 
 Tolerance: max|d| <= 1e-12 * max|ref| per field (measured <= 6.3e-16).  SARIAF
 switches the four-velocity at r < r_ms, so samples within 1e-9 of the ISCO
@@ -114,10 +115,14 @@ def test_models_load_by_name_on_a_device_and_refuse_another():
     with pytest.raises(ValueError, match="meta"):
         model.vals(torch.from_numpy(x).to("meta"),
                    torch.from_numpy(k).to("meta"), A)
-    with pytest.raises(NotImplementedError, match="THINDISK"):
-        tbase.load_fluid_model("THINDISK", device="cpu")
-    with pytest.raises(NotImplementedError, match="THINDISK"):
-        convert.analytic_from_fields("THINDISK", {}, "cpu")
+    disk = tbase.load_fluid_model("THINDISK", device="cpu")
+    assert (disk.a, disk.mbh, disk.mdot) == (0.998, 10.0, 0.1)
+    assert convert.analytic_from_fields("thindisk", dict(mdot=0.3),
+                                        "cpu").mdot == 0.3
+    with pytest.raises(NotImplementedError, match="HARM"):
+        tbase.load_fluid_model("HARM", device="cpu")
+    with pytest.raises(NotImplementedError, match="FFJET"):
+        convert.analytic_from_fields("FFJET", {}, "cpu")
 
 
 @pytest.mark.parametrize("a", [0.0, 0.5, 0.9, 0.998, -0.7])

@@ -198,12 +198,61 @@ def test_run_without_a_device_does_not_fall_back_to_the_cpu():
         Grtrans(**dict(COMMON, **CONFIGS["sariaf_thermal_formal"])).run()
 
 
-@pytest.mark.parametrize("change", [dict(fname="THINDISK"), dict(ename="BB"),
-                                    dict(standard=2), dict(prec="mixed"),
-                                    dict(extra=1), dict(debug=1)])
-def test_unported_options_raise_by_name(change):
+def _tiny(**change):
     kw = dict(COMMON, **CONFIGS["sariaf_thermal_formal"])
     kw.update(change, nn=(4, 4, 16))
-    (key, value), = change.items()
-    with pytest.raises(NotImplementedError, match=str(value)):
-        Grtrans(**kw).run(device="cpu")
+    return kw
+
+
+def _run_on_a_time_series(**kw):
+    """nload > 1 is slow light only on a model that holds several time
+    slices, which the GRMHD models will."""
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    cfg = GrtransConfig(**kw)
+    model = load_fluid_model(cfg.fname, device="cpu", **cfg.fargs)
+    model.nt_slices = 3
+    return grtrans_run(cfg, model, device="cpu")
+
+
+def _grtrans_run(**options):
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    return grtrans_run(GrtransConfig(**_tiny()), device="cpu", **options)
+
+
+UNPORTED = {
+    "mixed": lambda tmp: Grtrans(**_tiny(prec="mixed")).run(device="cpu"),
+    "nload=2": lambda tmp: _run_on_a_time_series(**_tiny(nload=2)),
+    "gdfile": lambda tmp: _grtrans_run(gdfile=str(tmp / "geo.npz")),
+    "mesh": lambda tmp: _grtrans_run(mesh=object()),
+    "fits": lambda tmp: Grtrans(**_tiny()).run(device="cpu").write_output(
+        tmp / "cams.fits", fmt="fits"),
+    "HARM": lambda tmp: Grtrans(**_tiny(fname="HARM")).run(device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_unported_options_raise_by_name(name, tmp_path):
+    with pytest.raises(NotImplementedError, match=name):
+        UNPORTED[name](tmp_path)
+
+
+@pytest.mark.parametrize("change,columns", [
+    (dict(fname="THINDISK", ename="BB", standard=2, fargs={}), 4),
+    (dict(ename="BB"), 4), (dict(standard=2), 4), (dict(extra=1), 23),
+    (dict(debug=1), 4), (dict(nload=2), 4)],
+    ids=["THINDISK", "BB", "standard=2", "extra=1", "debug=1",
+         "nload=2 on one slice"])
+def test_ported_options_render(change, columns):
+    """Options that render, with the shape and Stokes I that grtrans_tpu
+    gives them."""
+    kw = _tiny(**change)
+    ours = Grtrans(**kw).run(device="cpu")
+    assert ours.ivals.shape == (16, columns, 2)
+    assert np.isfinite(ours.ivals).all()
+    ref = JGrtrans(**kw).run()
+    assert ours.ivals.shape == ref.ivals.shape
+    np.testing.assert_allclose(ours.ivals[:, 0], ref.ivals[:, 0], rtol=1e-7,
+                               atol=1e-9 * np.abs(ref.ivals[:, 0]).max())

@@ -172,8 +172,14 @@ def test_calc_emissivity_dispatch_matches_jax(ename):
 
 
 def test_calc_emissivity_names_what_is_not_ported():
+    """Every emissivity of grtrans_tpu is ported (the non-synchrotron ones
+    are held in tests/test_torch_emis_other.py); a name that neither
+    package knows is refused by name, with grtrans_tpu's ValueError."""
     z = torch.zeros((2, 3), dtype=torch.float64)
-    for ename in ("BB", "BREMS", "MAXJUTT", "INTERP"):
-        with pytest.raises(NotImplementedError, match=ename):
-            tdriver.calc_emissivity(ename, z + 1e11, EmisInputs(z, z, z, z),
-                                    z, z, SourceParams())
+    ei = EmisInputs(z + 1e3, z + 1e9, z + 10.0, z)
+    for ename in ("BB", "BREMS", "MAXJUTT", "RHO"):
+        e = tdriver.calc_emissivity(ename, z + 1e11, ei, z + 1.0, z + 0.5,
+                                    SourceParams())
+        assert e.shape == (2, 3, 11) and (e[..., 0] > 0).all()
+    with pytest.raises(ValueError, match="KAPPA"):
+        tdriver.calc_emissivity("KAPPA", z + 1e11, ei, z, z, SourceParams())

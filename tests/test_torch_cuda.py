@@ -90,3 +90,51 @@ def test_quad_gather_flags_out_of_range_rows(dev, nc, nf):
         assert (out[[0, 3]] == 0).all()
     finally:
         flag.zero_()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 1024 * 1024 + 3])
+def test_quad_gather_at_the_phatdisk_shape(dev, n):
+    """PHATDISK's pair-packed table, (500, 2 x 101) float64: the generic
+    kernel, at query counts ragged against its block."""
+    rng = np.random.default_rng(2)
+    table = torch.as_tensor(rng.standard_normal((500, 202)), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 499, n), dtype=torch.int32,
+                          device=dev)
+    wgt = torch.as_tensor(rng.uniform(0.0, 1.0, n), device=dev)
+    w = torch.stack([1 - wgt, wgt], dim=-1)
+    before = qg.quad_gather.launches
+    out = qg.quad_gather(table, idx, w, 2, 101)
+    ref = qg.quad_gather_ref(table, idx, w, 2, 101)
+    torch.cuda.synchronize()
+    assert qg.quad_gather.launches == before + 1
+    assert qg.error_flag(dev).item() == 0
+    assert out.shape == (n, 101)
+    assert (out - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_phatdisk_vals_on_the_card_match_the_cpu(dev):
+    """PhatDisk.vals launches the kernel once on the card and agrees with
+    its CPU path (the plain version) on the same points."""
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    kw = dict(a=0.9, nr=500, nfreq_tab=100, nw=100)
+    on_card = load_fluid_model("PHATDISK", device=dev, **kw)
+    on_cpu = load_fluid_model("PHATDISK", device="cpu", **kw)
+    rng = np.random.default_rng(3)
+    x = np.zeros((4096, 1, 4))
+    x[..., 1] = 10.0 ** rng.uniform(np.log10(1.5), 3.9, (4096, 1))
+    x[..., 2] = np.pi / 2
+    k = rng.normal(size=x.shape)
+    before = qg.quad_gather.launches
+    got = on_card.vals(torch.as_tensor(x, device=dev),
+                       torch.as_tensor(k, device=dev), 0.9)
+    assert qg.quad_gather.launches == before + 1
+    want = on_cpu.vals(torch.from_numpy(x), torch.from_numpy(k), 0.9)
+    assert got.fnu.shape == (4096, 1, 100) and got.fnu.device.type == "cuda"
+    for field in ("fnu", "u", "b"):
+        g, w = getattr(got, field).cpu(), getattr(want, field)
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(g), fin)
+        assert (g[fin] - w[fin]).abs().max().item() \
+            <= 1e-12 * w[fin].abs().max().item()

@@ -75,10 +75,19 @@ def test_registry_load_and_unported_options(tmp_path):
     model = convert.ffjet_from_arrays(*load_ffjet_file(dfile), device="cpu")
     preloaded, _, _ = trun(cfg, model, device="cpu")
     assert torch.equal(by_name, preloaded)
-    for change in (dict(prec="mixed"), dict(fname="THINDISK"), dict(extra=1),
-                   dict(ename="BB"), dict(standard=2)):
+    for change in (dict(prec="mixed"), dict(fname="HARM"),
+                   dict(fname="KORAL"), dict(fname="IHARM")):
         with pytest.raises(NotImplementedError):
             trun(dataclasses.replace(cfg, **change), device="cpu")
+    for option in (dict(gdfile=str(tmp_path / "geo.npz")),
+                   dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match=next(iter(option))):
+            trun(cfg, model, device="cpu", **option)
+    # the diagnostic channels ride behind the same Stokes columns
+    extra, _, _ = trun(dataclasses.replace(cfg, extra=1), model, device="cpu")
+    assert extra.shape == (1, 36, 4 + 19)
+    torch.testing.assert_close(extra[..., :4], preloaded, rtol=0.0,
+                               atol=1e-12 * preloaded.abs().max().item())
 
 
 def test_pixel_subrange_is_a_slice_of_the_camera(tmp_path):
