@@ -5,11 +5,11 @@
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit; TF32 off;
   2. build the hand-written kernels of csrc/quad_gather.cu for sm_90a;
-  3. hold the kernel against its plain PyTorch version on the card at the
+  3. hold quad_gather against its plain PyTorch version on the card at the
      main paths' shapes (FFJET 4e6 queries x (16384, 36) table in f64 and
      f32; the POLSYNCHPL cutoff table (201, 12); PHATDISK's pair-packed
-     table (500, 2 x 101) at the 1024^2 queries of its frame) on
-     uniformly random rows,
+     table (500, 2 x 101) at the 1024^2 queries of its frame, which the
+     wrapper sends to the wide-row kernel) on uniformly random rows,
      check the out-of-range flag, and time with CUDA events: the kernel
      the wrapper picks, the generic kernel, the plain version and
      embedding_bag (the one-call PyTorch yardstick), beside the bound
@@ -44,6 +44,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      frames, both disks at 32x32 x 1, and a SARIAF + POLSYNCHTH + formal
      render with extra=1 at 16x16 x 64 (Stokes and each of the 19 extra
      channels).
+ 11. quad_gather_rows, the multi-row gather of the GRMHD snapshot
+     samplers, against its plain version at a 288x128x128 snapshot's table
+     (4,718,592 rows of 2 x 10) with 4e6 queries of R = 4 rows in f64 and
+     f32, of R = 8 rows on three slices, and HARM's 2-D shape (4 x 10
+     through quad_gather); the wide-row kernel at ragged widths; the
+     out-of-range flag of both; timed like phase 3 (embedding_bag on the
+     table viewed as (2 NS, nf) is the library yardstick);
+ 12. a HARM3D snapshot frame (POLSYNCHTH, formal, 100x100 x 400, float64)
+     on a seeded synthetic 288x128x128 snapshot through
+     Grtrans(...).run(model=...): finite, I >= 0, total flux in Jy at Sgr
+     A*, one quad_gather_rows launch a frame counted, warm time, stage
+     walls, peak memory, rerun identical; the kernel timed once more on
+     that frame's own index stream;
+ 13. slow light on the same camera: a three-slice series (nload = 3), equal
+     to fast light on identical slices and brighter than the oldest slice
+     on a brightening series; on a 26 M wide camera, whose rays are all
+     clear of a fault that camera_delay shares with grtrans_tpu, its flux
+     lies between the fast-light fluxes of the oldest and the newest slice
+     by more than 1%;
+ 14. the card against the port's CPU run at 16x16 x 64 for HARM3D, IHARM,
+     THICKDISK, KORAL3D with SYNCHBIN, HARM and HARMPI.
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -71,6 +92,10 @@ CPU_GPU_RTOL = 1e-8                   # whole-image rel L1, card vs CPU
 EXTRA_RTOL = 1e-8
 DISK_NN = (1024, 1024, 1)             # thin-disk camera: one point a ray
 HOTSPOT_FRAMES = 6
+SNAPSHOT_NX = (288, 128, 128)         # the EHT library's iharm3d resolution
+SNAPSHOT_MDOT = 4e13                  # g/s: ~1 Jy at 230 GHz from Sgr A*
+SGRA_DISTANCE_CM = 8.178e3 * 3.0857e18
+ROWS_TOL = {torch.float64: 1e-14, torch.float32: 2e-6}
 
 
 def riaf_kwargs(nn, iname):
@@ -106,6 +131,17 @@ PHATDISK = dict(fname="PHATDISK", ename="INTERP", nvals=1, nfreq=3,
                 fmin=1e17, fmax=1e18,
                 fargs=dict(a=0.9, mbh=10.0, mdot=0.1, nw=80, fmin=3e16,
                            fmax=3e18))
+
+
+def snapshot_kwargs(fname, nn, **change):
+    """The Sgr A* snapshot camera of tests/test_slowlight.py."""
+    kw = dict(fname=fname, ename="POLSYNCHTH", nvals=4, spin=0.9375,
+              standard=1, nn=nn, uout=0.04, mbh=4.3e6, mumin=0.5, mumax=0.5,
+              nfreq=1, fmin=2.3e11, fmax=2.3e11, iname="formal",
+              mdotmin=SNAPSHOT_MDOT, mdotmax=SNAPSHOT_MDOT,
+              gridvals=(-15.0, 15.0, -15.0, 15.0), gmin=10.0, muval=0.25)
+    kw.update(change)
+    return kw
 
 
 def flagship_config(GrtransConfig, dfile, nn):
@@ -146,6 +182,174 @@ def gather_bound_ms(n, ns, nc, nf, dtype):
     t_ops = 2.0 * n * nc * nf / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def reset_counts(qg):
+    qg.quad_gather.launches = 0
+    qg.quad_gather.launches_by_kernel.clear()
+    qg.quad_gather_rows.launches = 0
+
+
+def read_counts(qg):
+    return dict(quad_gather=qg.quad_gather.launches,
+                wide=qg.quad_gather.launches_by_kernel["wide"],
+                quad_gather_rows=qg.quad_gather_rows.launches)
+
+
+def rows_bound_ms(idx, w, ns, nc, nf):
+    """Least time for one quad_gather_rows: index, weights and output once
+    and every distinct row the queries name once, over the memory rate,
+    against 2 R nc nf operations a query over the peak rate."""
+    n, r = idx.shape
+    size = w.element_size()
+    distinct = idx.unique().numel()
+    nbytes = n * r * 4 + n * r * nc * size + n * nf * size \
+        + distinct * nc * nf * size
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * n * r * nc * nf / PEAK_FLOPS[w.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), distinct
+
+
+def check_rows(qg, name, table, idx, w, nc, nf, reps=10):
+    """quad_gather_rows against its plain version on the card, then CUDA
+    event times in the order plain, embedding_bag, kernel, kernel,
+    embedding_bag, plain.  Returns the dict of mean times, bound and
+    max_abs_err."""
+    n, r = idx.shape
+    ns = table.shape[0]
+    out = qg.quad_gather_rows(table, idx, w, nc, nf)
+    ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
+    torch.cuda.synchronize()
+    # a ray's samples past its end carry NaN weights: NaN in both
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(out), fin):
+        raise AssertionError(f"{name}: kernel and plain differ in where "
+                             "they are finite")
+    err = (out - ref)[fin].abs().max().item()
+    scale = ref[fin].abs().max().item()
+    tol = ROWS_TOL[table.dtype]
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max|kernel - plain| {err} > "
+                             f"{tol} * {scale}")
+    if qg.error_flag(table.device).item() != 0:
+        raise AssertionError(f"{name}: out-of-range flag set")
+    bag_idx = (idx.long()[:, :, None] * nc
+               + torch.arange(nc, device=idx.device)).reshape(n, r * nc)
+    bag_table = table.view(ns * nc, nf)
+    bag_w = w.reshape(n, r * nc)
+    del out, ref
+
+    def plain():
+        return qg.quad_gather_rows_ref(table, idx, w, nc, nf)
+
+    def library():
+        return torch.nn.functional.embedding_bag(
+            bag_idx, bag_table, per_sample_weights=bag_w, mode="sum")
+
+    def kernel():
+        return qg.quad_gather_rows(table, idx, w, nc, nf)
+
+    lib_err = (library() - plain())[fin].abs().max().item()
+    del fin
+    times = {}
+    for fn in (plain, library, kernel, kernel, library, plain):
+        times.setdefault(fn.__name__, []).append(cuda_ms(fn, reps))
+    bound, bound_by, distinct = rows_bound_ms(idx, w, ns, nc, nf)
+    res = {k: sum(v) / len(v) for k, v in times.items()}
+    res.update(bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+    print(f"{name}: N={n} R={r} table=({ns}, {nc * nf}) {table.dtype}, "
+          f"{distinct} distinct rows: max|kernel - plain| {err:.3e} (max|plain| "
+          f"{scale:.3e}, bar {tol:g} of it); kernel "
+          + "/".join(f"{t:.4f}" for t in times["kernel"])
+          + " ms, plain " + "/".join(f"{t:.4f}" for t in times["plain"])
+          + " ms, embedding_bag "
+          + "/".join(f"{t:.4f}" for t in times["library"])
+          + f" ms; bound {bound:.4f} ms by {bound_by} (share of bound "
+          f"{bound / res['kernel']:.3f}); max|embedding_bag - plain| "
+          f"{lib_err:.2e}")
+    return res
+
+
+def random_rows(ns, n, r, nc, dtype, dev, seed=SEED):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, ns, (n, r), generator=g, dtype=torch.int32,
+                        device=dev)
+    w = torch.rand((n, r, nc), generator=g, dtype=dtype, device=dev)
+    return idx, w
+
+
+def rows_phase(dev, qg):
+    """Phase 11.  Returns the dict of shapes timed."""
+    ns = SNAPSHOT_NX[0] * SNAPSHOT_NX[1] * SNAPSHOT_NX[2]
+    nc, nf = 2, 10
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = {}
+    table = torch.randn((3 * ns, nc * nf), generator=g, dtype=torch.float64,
+                        device=dev)
+    idx, w = random_rows(ns, N_QUERIES, 4, nc, torch.float64, dev)
+    shapes["snapshot R=4 f64"] = check_rows(
+        qg, "snapshot R=4 f64", table[:ns], idx, w, nc, nf)
+    t32 = table[:ns].float()
+    shapes["snapshot R=4 f32"] = check_rows(
+        qg, "snapshot R=4 f32", t32, idx, w.float(), nc, nf)
+    del t32
+    idx, w = random_rows(3 * ns, N_QUERIES, 8, nc, torch.float64, dev)
+    shapes["three slices R=8 f64"] = check_rows(
+        qg, "three slices R=8 f64", table, idx, w, nc, nf)
+    del table, idx, w
+    torch.cuda.empty_cache()
+    # KORAL3D's binned population: 8 rows of a plain table
+    table = torch.randn((100_000, 6), generator=g, dtype=torch.float64,
+                        device=dev)
+    idx, w = random_rows(100_000, 100_003, 8, 1, torch.float64, dev)
+    shapes["bins R=8 nc=1 f64"] = check_rows(qg, "bins R=8 nc=1 f64", table,
+                                             idx, w, 1, 6)
+    # HARM's 2-D shape, a 32 x 24 grid's corner-packed table
+    err, times = check_kernel(qg, "harm 2-D f64", 768, 4, 10, torch.float64,
+                              dev)
+    shapes["harm 2-D f64"] = dict(times, max_abs_err=err)
+    # the wide-row kernel at widths ragged against the warp
+    for nc_, nf_, dtype in ((2, 101, torch.float32), (3, 45, torch.float64),
+                            (1, 257, torch.float64)):
+        before = qg.quad_gather.launches_by_kernel["wide"]
+        rng = np.random.default_rng(SEED)
+        tb = torch.as_tensor(rng.standard_normal((300, nc_ * nf_)),
+                             dtype=dtype, device=dev)
+        ix = torch.as_tensor(rng.integers(0, 300, 100_003), dtype=torch.int32,
+                             device=dev)
+        ww = torch.as_tensor(rng.uniform(0, 1, (100_003, nc_)), dtype=dtype,
+                             device=dev)
+        compare_gather(qg, f"wide ({nc_} x {nf_}) {dtype}", tb, ix, ww, nc_,
+                       nf_)
+        if qg.quad_gather.launches_by_kernel["wide"] != before + 1:
+            raise AssertionError("the wrapper did not pick the wide kernel")
+    # the error flag of both new kernels
+    flag = qg.error_flag(dev)
+    tb = torch.ones((16, 202), dtype=torch.float64, device=dev)
+    out = qg.quad_gather(tb, torch.tensor([0, 16, 3], dtype=torch.int32,
+                                          device=dev),
+                         torch.ones((3, 2), dtype=torch.float64, device=dev),
+                         2, 101)
+    torch.cuda.synchronize()
+    if flag.item() != 1 or not torch.isnan(out[1]).all() \
+            or not (out[[0, 2]] == 2).all():
+        raise AssertionError("wide kernel: out-of-range index not flagged")
+    flag.zero_()
+    idx = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    idx[1, 2] = 16
+    out = qg.quad_gather_rows(tb[:, :20].contiguous(), idx,
+                              torch.ones((3, 4, 2), dtype=torch.float64,
+                                         device=dev), 2, 10)
+    torch.cuda.synchronize()
+    if flag.item() != 1 or not torch.isnan(out[1]).all() \
+            or not (out[[0, 2]] == 8).all():
+        raise AssertionError("quad_gather_rows: out-of-range index not "
+                             "flagged")
+    flag.zero_()
+    print("wide and rows kernels: out-of-range index flagged, row NaN, "
+          "others untouched")
+    return shapes
 
 
 def time_gather(qg, name, table, idx, w, nc, nf):
@@ -364,25 +568,27 @@ def ffjet_phases(dev, qg):
     return launches, frame_times
 
 
-def counted_run(qg, dev, name, kw):
-    """Grtrans(**kw).run() on the card with the kernel's launch count set
-    to 0 just before and read just after; then one warm run for the wall
-    time, the peak memory and a rerun that must be identical.  Returns
-    (result, launches)."""
+def counted_run(qg, dev, name, kw, model=None):
+    """Grtrans(**kw).run() on the card with every kernel's launch count set
+    to 0 just before and read just after (kept whole in
+    counted_run.counts); then one warm run for the wall time, the peak
+    memory and a rerun that must be identical.  Returns (result,
+    quad_gather launches)."""
     from grtrans_tpu_torch.api import Grtrans
 
-    qg.quad_gather.launches = 0
+    reset_counts(qg)
     t0 = time.perf_counter()
-    x = Grtrans(**kw).run()
+    x = Grtrans(**kw).run(model=model)
     first_s = time.perf_counter() - t0
-    launches = qg.quad_gather.launches
+    counted_run.counts = read_counts(qg)
+    launches = counted_run.counts["quad_gather"]
     if qg.error_flag(dev).item() != 0:
         raise AssertionError(f"{name}: out-of-range table index")
     if not np.isfinite(x.ivals).all():
         raise AssertionError(f"{name}: image not finite")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    again = Grtrans(**kw).run()
+    again = Grtrans(**kw).run(model=model)
     warm_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     rerun = np.abs(again.ivals - x.ivals).max()
@@ -391,7 +597,7 @@ def counted_run(qg, dev, name, kw):
     print(f"{name} {nn[0]}x{nn[1]}x{nn[2]} x {ncams} cameras, f64: first "
           f"{first_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms "
           f"({ncams * nn[0] * nn[1] / warm_s / 1e6:.6f} Mrays/s); "
-          f"quad_gather launches {launches}; peak memory "
+          f"launches {counted_run.counts}; peak memory "
           f"{peak / 2 ** 30:.3f} GiB; max|rerun - first| {rerun:.3e}")
     if rerun != 0.0:
         raise AssertionError(f"{name}: rerun differs by {rerun}")
@@ -483,6 +689,10 @@ def disk_phase(dev, qg):
 
     x, phat_launches = counted_run(qg, dev, "phatdisk",
                                    disk_kwargs(DISK_NN, **PHATDISK))
+    disk_phase.wide_launches = counted_run.counts["wide"]
+    if disk_phase.wide_launches < 1:
+        raise AssertionError("PHATDISK path never launched the wide-row "
+                             "kernel")
     if x.ivals.shape != (npix, 1, PHATDISK["nfreq"]):
         raise AssertionError(f"bad PHATDISK image {x.ivals.shape}")
     if phat_launches < 1:
@@ -529,6 +739,187 @@ def card_vs_cpu_phase():
                              f"channels {rel_x}")
 
 
+def snapshot_phases(dev, qg):
+    """Phases 12 and 13.  Returns (counts of the fast-light frame, counts
+    of the slow-light frame, times of quad_gather_rows on the frame's own
+    index stream)."""
+    from grtrans_tpu_torch import constants as pc
+    from grtrans_tpu_torch import driver
+    from grtrans_tpu_torch.api import Grtrans
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid import grmhd3d
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.geodesics import camera, geokerr
+    from grtrans_tpu_torch.orchestrator import _source_params
+    from grtrans_tpu_torch.testing import grmhd_dump
+
+    t0 = time.perf_counter()
+    dump = grmhd_dump.harm3d_dump(*SNAPSHOT_NX, seed=SEED)
+    t1 = time.perf_counter()
+    model = load_fluid_model("HARM3D", device=dev, dump=dump)
+    table, names = model._stacked_fields()
+    torch.cuda.synchronize()
+    print(f"snapshot {SNAPSHOT_NX}: synthetic dump {t1 - t0:.1f} s on the "
+          f"host, load + pack {time.perf_counter() - t1:.1f} s; table "
+          f"{tuple(table.shape)} {table.dtype}, "
+          f"{table.numel() * 8 / 1e6:.0f} MB")
+    del dump
+
+    # 12. the frame, counted
+    kw = snapshot_kwargs("HARM3D", NN)
+    npix = NN[0] * NN[1]
+    x, _ = counted_run(qg, dev, "HARM3D snapshot", kw, model=model)
+    fast_counts = counted_run.counts
+    if fast_counts["quad_gather_rows"] != 1:
+        raise AssertionError(f"HARM3D frame launches {fast_counts}: expected "
+                             "one quad_gather_rows launch")
+    I = x.ivals[:, 0, 0]
+    if x.ivals.shape != (npix, 4, 1) or not (I >= 0).all() or I.max() <= 0:
+        raise AssertionError(f"bad HARM3D image {x.ivals.shape}, I min "
+                             f"{I.min()}")
+    flux_fast = x.spec[0, 0]
+    jy = flux_fast * pc.lbh(kw["mbh"]) ** 2 / SGRA_DISTANCE_CM ** 2 * 1e23
+    print(f"HARM3D: I max {I.max():.6e}, total flux {flux_fast:.6e} cgs = "
+          f"{jy:.4f} Jy at Sgr A* (mdot {SNAPSHOT_MDOT:g} g/s), LP {x.lp}, "
+          f"CP {x.cp}")
+    if not 0.1 < jy < 10.0:
+        raise AssertionError(f"HARM3D flux {jy} Jy: not of order 1 Jy")
+
+    # stage walls of one frame, and the frame's own index stream
+    cfg = GrtransConfig(**kw)
+    a, mu0 = cfg.spin, cfg.mumin
+    cam = camera.make_camera(a, mu0, *cfg.gridvals, NN[0], NN[1], device=dev)
+    sp = _source_params(cfg, SNAPSHOT_MDOT)
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    geo = stage("trace", lambda: geokerr.trace(
+        a, mu0, cam.alpha, cam.beta, cam.l, cam.q2, cam.sm, cam.u0, NN[2],
+        uout=cfg.uout, phi0=cfg.phi0))
+    frame_args = []
+    wrapper = grmhd3d.quad_gather_rows
+
+    def keep(*args):
+        frame_args.append(args)
+        return wrapper(*args)
+
+    grmhd3d.quad_gather_rows = keep
+    try:
+        fv = stage("harm3d_vals", lambda: model.vals(geo.x, geo.k, a))
+    finally:
+        grmhd3d.quad_gather_rows = wrapper
+    q = stage("vals: query geometry", lambda: model._query(geo.x, a))
+    stage("vals: x2_of_theta alone",
+          lambda: model.x123_of_blks(q["r"], q["th"], q["th"]))
+    ei = stage("convert", lambda: model.convert(fv, sp))
+    stage("render_rays", lambda: driver.render_rays(
+        geo, fv, ei, cfg.ename, [cfg.fmin], mu0, cam.alpha, cam.beta, a,
+        cfg.mbh, sp, iname="formal"))
+    print("stages (ms): " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in stages.items()))
+    tbl, idx, w, nc, nf = frame_args[0]
+    frame_times = check_rows(qg, "snapshot R=4 f64, frame's rows", tbl, idx,
+                             w, nc, nf)
+    del geo, fv, ei, q, frame_args, tbl, idx, w
+
+    # 13. slow light on a three-slice series
+    base = {k: v[0] for k, v in model.f.items()}
+
+    def scaled(fac):
+        arrs = {k: v * fac if k in ("rho", "p") else v
+                for k, v in base.items()}
+        for k in ("b0", "br", "bth", "bph"):
+            arrs[k] = base[k] * fac ** 0.5
+        return arrs
+
+    def series(facs):
+        model._store(base)
+        for fac in facs:
+            model.append_slice(scaled(fac))
+        model.tstep, model.toffset = 20.0, -20.0 * len(facs)
+
+    slow_kw = dict(kw, nload=3)
+    series([1.0, 1.0])
+    same = Grtrans(**slow_kw).run(model=model)
+    rel = np.abs(same.ivals - x.ivals).sum() / np.abs(x.ivals).sum()
+    print(f"slow light on three identical slices vs fast light: rel L1 "
+          f"{rel:.3e} (bar 1e-10)")
+    if not rel <= 1e-10:
+        raise AssertionError(f"slow light on identical slices differs from "
+                             f"fast light by {rel}")
+    series([1.5, 2.0])
+    slow, _ = counted_run(qg, dev, "HARM3D slow light, 3 slices", slow_kw,
+                          model=model)
+    slow_counts = counted_run.counts
+    if slow_counts["quad_gather_rows"] != 1:
+        raise AssertionError(f"slow-light frame launches {slow_counts}")
+    table, _ = model._stacked_fields()
+    print(f"slow-light table {tuple(table.shape)}, "
+          f"{table.numel() * 8 / 1e6:.0f} MB")
+    del table
+    # the direction of the lag, on a camera whose rays all turn well inside
+    # the trace's start: camera_delay (here as in grtrans_tpu) is off by the
+    # camera's distance for the few corner rays of the 30 M camera that
+    # turn within 1.4 uout, and their delay is the minimum the others are
+    # measured from, which pushes every other sample past the oldest slice
+    narrow = dict(kw, gridvals=(-13.0, 13.0, -13.0, 13.0))
+    lag = Grtrans(**dict(narrow, nload=3)).run(model=model)
+    model._store(base)
+    oldest = Grtrans(**narrow).run(model=model)
+    model._store(scaled(2.0))
+    newest = Grtrans(**narrow).run(model=model)
+    fluxes = (oldest.spec[0, 0], lag.spec[0, 0], newest.spec[0, 0])
+    print(f"30 M camera: fast light {flux_fast:.6e}, slow light "
+          f"{slow.spec[0, 0]:.6e} (cgs); 26 M camera: oldest slice "
+          f"{fluxes[0]:.6e} < slow light {fluxes[1]:.6e} < newest slice "
+          f"{fluxes[2]:.6e}; slow / oldest {fluxes[1] / fluxes[0]:.4f}")
+    if not (flux_fast < slow.spec[0, 0]
+            and fluxes[0] * 1.01 < fluxes[1] < fluxes[2] * 0.99):
+        raise AssertionError(f"slow light does not lag the growing source: "
+                             f"{fluxes}")
+    return fast_counts, slow_counts, frame_times
+
+
+def snapshot_card_vs_cpu_phase():
+    """Phase 14: every snapshot family at 16x16 x 64, the card against the
+    port's CPU run."""
+    from grtrans_tpu_torch.api import Grtrans
+    from grtrans_tpu_torch.testing import grmhd_dump as gd
+
+    nn = (16, 16, 64)
+    bins = dict(nrelbin=3, relgammamin=10.0, relgammamax=1e4)
+    cases = {
+        "HARM3D": (gd.harm3d_dump(seed=SEED), {}, {}),
+        "IHARM (MMKS)": (gd.iharm_dump(metric=1, seed=SEED), {},
+                         dict(mdotmin=1e18, mdotmax=1e18)),
+        "THICKDISK": (gd.thickdisk_dump(seed=SEED), {}, {}),
+        "KORAL3D + SYNCHBIN": (gd.koral_dump(48, 24, 12, nrelbin=3,
+                                             seed=SEED), bins,
+                               dict(ename="SYNCHBIN", mdotmin=1e8,
+                                    mdotmax=1e8)),
+        "HARM": (gd.harm_dump(seed=SEED), {}, {}),
+        "HARMPI (BL=3)": (gd.harmpi_dump(bl=3, seed=SEED), {},
+                          dict(mdotmin=1e18, mdotmax=1e18)),
+    }
+    for name, (dump, fargs, change) in cases.items():
+        kw = snapshot_kwargs(name.split()[0], nn,
+                             fargs=dict(dump=dump, **fargs), **change)
+        gpu = Grtrans(**kw).run().ivals
+        cpu = Grtrans(**kw).run(device="cpu").ivals
+        rel = np.abs(gpu - cpu).sum() / np.abs(cpu).sum()
+        print(f"{name} 16x16x64: card vs CPU rel L1 {rel:.3e} (bar "
+              f"{CPU_GPU_RTOL}); I max {cpu[:, 0].max():.3e}")
+        if not (rel <= CPU_GPU_RTOL and cpu[:, 0].max() > 0):
+            raise AssertionError(f"{name}: card vs CPU rel L1 {rel}")
+
+
 def run(dev):
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from grtrans_tpu_torch.ops import quad_gather as qg
@@ -571,24 +962,54 @@ def run(dev):
     hotspot_launches = hotspot_phase(dev, qg)
     thin_launches, phat_launches = disk_phase(dev, qg)
     card_vs_cpu_phase()
+    shapes.update(rows_phase(dev, qg))
+    fast_counts, slow_counts, frame_times = snapshot_phases(dev, qg)
+    shapes["snapshot R=4 f64, frame's rows"] = frame_times
+    snapshot_card_vs_cpu_phase()
 
     main = shapes["ffjet f64"]
+    wide = shapes["phatdisk f64"]
+    rows = shapes["snapshot R=4 f64"]
+    source = "grtrans_tpu_torch/csrc/quad_gather.cu"
     print(card)
     print(json.dumps({"kernels": [{
         "name": "quad_gather", "route": "cuda",
         "source": "grtrans_tpu_torch/csrc/quad_gather.cu",
         "replaces": "grtrans_tpu/ops/pallas_gather.py:49",
         "launches": (ffjet_launches + riaf_launches + hotspot_launches
-                     + thin_launches + phat_launches),
+                     + thin_launches + phat_launches
+                     + fast_counts["quad_gather"]
+                     + slow_counts["quad_gather"]),
         "launches_by_path": {"ffjet_flagship": ffjet_launches,
                              "riaf_hybrid_lsoda": riaf_launches,
                              "hotspot_light_curve": hotspot_launches,
                              "thindisk_bbpol": thin_launches,
-                             "phatdisk_interp": phat_launches},
+                             "phatdisk_interp": phat_launches,
+                             "harm3d_snapshot": fast_counts["quad_gather"],
+                             "harm3d_slow_light":
+                                 slow_counts["quad_gather"]},
         "max_abs_err": main["max_abs_err"], "ms": main["kernel"],
         "plain_ms": main["plain"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library"],
-        "generic_ms": main["generic"], "shapes": shapes}]}))
+        "generic_ms": main["generic"], "shapes": shapes}, {
+        "name": "quad_gather_wide", "route": "cuda", "source": source,
+        "replaces": "grtrans_tpu/ops/pallas_gather.py:49",
+        "launches": disk_phase.wide_launches,
+        "launches_by_path": {"phatdisk_interp": disk_phase.wide_launches},
+        "max_abs_err": wide["max_abs_err"], "ms": wide["kernel"],
+        "plain_ms": wide["plain"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library"],
+        "generic_ms": wide["generic"]}, {
+        "name": "quad_gather_rows", "route": "cuda", "source": source,
+        "replaces": "grtrans_tpu/fluid/grmhd3d.py:212",
+        "launches": (fast_counts["quad_gather_rows"]
+                     + slow_counts["quad_gather_rows"]),
+        "launches_by_path": {
+            "harm3d_snapshot": fast_counts["quad_gather_rows"],
+            "harm3d_slow_light": slow_counts["quad_gather_rows"]},
+        "max_abs_err": rows["max_abs_err"], "ms": rows["kernel"],
+        "plain_ms": rows["plain"], "bound_ms": rows["bound_ms"],
+        "bound_by": rows["bound_by"], "library_ms": rows["library"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

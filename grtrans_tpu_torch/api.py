@@ -27,11 +27,14 @@ class Grtrans:
         self.cfg = GrtransConfig(**kwargs)
         return self
 
-    def run(self, device="cuda", chunk=None, **kwargs):
+    def run(self, device="cuda", chunk=None, model=None, **kwargs):
         """Render on `device` (run_pgrtrans, grtrans_batch.py:397-414).
         The default is the card; without one this raises rather than
         render on the CPU, which a caller asks for with device="cpu".
-        chunk: pixels per block, see grtrans_run."""
+        chunk: pixels per block, see grtrans_run.  model: a fluid model
+        already loaded on `device` (a GRMHD snapshot rendered many times,
+        a time series built with append_slice); else it is loaded from
+        fname / fargs."""
         if kwargs:
             self.set_inputs(**kwargs)
         if torch.device(device).type == "cuda" \
@@ -39,7 +42,8 @@ class Grtrans:
             raise RuntimeError(
                 f"Grtrans.run(device={device!r}): no CUDA device; pass "
                 "device=\"cpu\" to render on the CPU")
-        ivals, ab, freqs = grtrans_run(self.cfg, device=device, chunk=chunk)
+        ivals, ab, freqs = grtrans_run(self.cfg, model, device=device,
+                                       chunk=chunk)
         # the reference's (npix, nvals, ncams) layout
         self.ivals = np.ascontiguousarray(
             ivals.cpu().numpy().transpose(1, 2, 0))

@@ -12,6 +12,9 @@ from grtrans_tpu_torch.fluid.sphacc import SphAcc
 
 _ANALYTIC = ("HOTSPOT", "POWERLAW", "SARIAF", "SCHNITTMAN", "THINDISK", "TOY")
 _TABLE_MODELS = {"PHATDISK": PhatDisk, "NUMDISK": NumDisk, "SPHACC": SphAcc}
+_GRMHD = ("HARM", "HARM3D", "IHARM", "HARMPI", "THICKDISK", "MB09", "KORAL",
+          "KORALNTH", "KORAL3D", "KORAL3D_DISK", "KORAL3D_TOPJET",
+          "KORAL3D_BOTJET")
 
 
 def config_from_jax(cfg):
@@ -46,3 +49,14 @@ def table_model_from_arrays(name, device, **tables):
     if cls is None:
         raise NotImplementedError(f"no table model {name!r} in the port")
     return cls(**tables, device=device)
+
+
+def grmhd_model_from_arrays(name, device, **dump_or_fields):
+    """The port's GRMHD snapshot model `name` (one of _GRMHD) on `device`
+    from the arguments the grtrans_tpu dataclass of the same name takes:
+    dump= the numpy dump dict (the one handed to grtrans_tpu, so that both
+    packages load identical arrays) or dfile= / hfile= / gfile= paths, plus
+    the model's own options (mdot_code, scalefac, nrelbin, jonfix, ...)."""
+    if name.upper() not in _GRMHD:
+        raise NotImplementedError(f"no GRMHD model {name!r} in the port")
+    return load_fluid_model(name, device=device, **dump_or_fields)

@@ -16,7 +16,7 @@
 // float32, far above the 227 KB of shared memory a block can use, but it
 // sits easily in the 50 MB L2, so rows are read straight through L2/L1.
 //
-// Two kernels:
+// Kernels of quad_gather:
 //  * quad_gather_tiled<T, NC, NF>, for the two shapes the renderer uses,
 //    (NC, NF) = (4, 9) and (2, 6).  A block of 128 threads takes a tile of
 //    128 queries.  Each thread reads its own query's index and weights
@@ -29,17 +29,48 @@
 //    own query from there (corners summed in the order c = 0..NC-1), and
 //    the tile's outputs go back through shared memory so that they leave
 //    in 16-byte stores on consecutive addresses.  No run-time divide.
+//  * quad_gather_wide<T>, for wide rows (nf >= 32; PHATDISK's pair-packed
+//    table has nc x nf = 2 x 101): a warp a query, eight queries a warp in
+//    sequence.  One lane reads the index and nc lanes the weights, once,
+//    and the warp shares them by shuffle; lanes stride f = lane, lane + 32,
+//    ... so that every warp-wide load of table[row, c * nf + f] and every
+//    store of out[n, f] covers 32 consecutive elements.  The next query's
+//    index and weights are fetched while the current one is combined.  No
+//    16-byte vectors: a row's second half and out[n] are only element
+//    aligned when nf is odd.  The table is small and stays in L2/L1; the
+//    output stream is what costs, and it leaves in whole lines.
 //  * quad_gather_generic<T>, for any other (nc, nf) or for operands that
 //    are not 16-byte aligned: one thread per output element.
+//
+// And the multi-row gather of the GRMHD snapshot samplers,
+//
+//   out[n, f] = sum_{r < R} sum_{c < nc} w[n, r, c] * table[idx[n, r], c * nf + f]
+//
+//  * quad_gather_rows<T, R, NC>: what Grmhd3D._gather_cols
+//    (grtrans_tpu/fluid/grmhd3d.py:212), thickdisk.py:269, koral.py:402 and
+//    harmpi.py:520 leave to one fused XLA gather + weighted sum.  R rows of
+//    a phi-pair-packed table (nc = 2) are the corners of a trilinear cell
+//    (R = 4; R = 8 with the two time slices of slow light folded into the
+//    weights), R rows of a plain table (nc = 1) the corners of a binned
+//    population.  Sixteen lanes take a query: lane f < nf owns output
+//    field f, so each of the R * nc loads of a query is nf consecutive
+//    elements (80-112 bytes in float64) and the index and weight loads are
+//    one address for the group, served as a broadcast.  All R * NC loads
+//    are in flight before the first is used.  A snapshot table is hundreds of
+//    MB, far beyond L2, so scattered rows come from device memory; the
+//    element offset idx * (nc * nf) is formed in 64 bits.  R and NC are
+//    template parameters for the renderer's shapes; <T, 0, 0> takes any
+//    (R, nc) at run time.
 //
 // Ragged edges are masked here (no padding to a block multiple).  An
 // index outside [0, ns) sets *err and writes NaN instead of reading out
 // of bounds; the host reads the flag after a run.
 //
 // C interface (ctypes): quad_gather_f32 / quad_gather_f64 launch on the
-// given stream and return cudaGetLastError().  `variant` 0 picks the
-// kernel by shape, 1 forces the generic kernel (used to time one against
-// the other).
+// given stream and return cudaGetLastError().  `variant` names the
+// kernel: 0 tiled (the shape must be one of the two it is built for), 1
+// generic, 2 wide.  quad_gather_rows_f32 / _f64 launch the multi-row
+// gather the same way.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -206,6 +237,156 @@ quad_gather_tiled(const T* __restrict__ table,
   for (int k = nvec * VEC + t; k < total; k += kTile) o[k] = s_buf[k];
 }
 
+constexpr int kWideWarps = 8;    // warps per block
+constexpr int kWideQueries = 8;  // queries a warp takes in sequence
+
+template <typename T>
+__global__ void __launch_bounds__(kWideWarps * 32)
+quad_gather_wide(const T* __restrict__ table, const int32_t* __restrict__ idx,
+                 const T* __restrict__ w, T* __restrict__ out,
+                 int* __restrict__ err, long long n, int ns, int nc, int nf) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * kWideWarps + (threadIdx.x >> 5);
+  const long long q0 = warp * kWideQueries;
+  if (q0 >= n) return;
+  const long long left = n - q0;
+  const int nq = left < kWideQueries ? static_cast<int>(left) : kWideQueries;
+  const int rowlen = nc * nf;
+
+  // lane 0 holds the index, lanes 0..nc-1 the weights, of the query ahead
+  int row_l = lane == 0 ? __ldg(idx + q0) : 0;
+  T w_l = lane < nc ? __ldg(w + q0 * nc + lane) : T(0);
+  for (int i = 0; i < nq; ++i) {
+    const long long q = q0 + i;
+    const int row = __shfl_sync(kFull, row_l, 0);
+    const T wq = w_l;
+    if (i + 1 < nq) {
+      row_l = lane == 0 ? __ldg(idx + q + 1) : 0;
+      w_l = lane < nc ? __ldg(w + (q + 1) * nc + lane) : T(0);
+    }
+    const bool bad = row < 0 || row >= ns;
+    if (bad && lane == 0) atomicExch(err, 1);
+    const T* trow = table + static_cast<long long>(bad ? 0 : row) * rowlen;
+    T* o = out + q * nf;
+    for (int f0 = 0; f0 < nf; f0 += 32) {
+      const int f = f0 + lane;
+      const bool live = f < nf;
+      T acc = T(0);
+      for (int c = 0; c < nc; ++c) {
+        const T wc = __shfl_sync(kFull, wq, c);
+        if (live) acc += wc * __ldg(trow + c * nf + f);
+      }
+      if (live) o[f] = bad ? quiet_nan<T>() : acc;
+    }
+  }
+}
+
+constexpr int kRowsGroup = 16;     // lanes a query
+constexpr int kRowsThreads = 256;  // threads a block
+
+// R_ = NC_ = 0: the row and corner counts are the run-time r_rt, nc.
+template <typename T, int R_, int NC_>
+__global__ void __launch_bounds__(kRowsThreads)
+quad_gather_rows(const T* __restrict__ table, const int32_t* __restrict__ idx,
+                 const T* __restrict__ w, T* __restrict__ out,
+                 int* __restrict__ err, long long n, long long ns, int r_rt,
+                 int nc_rt, int nf) {
+  const int R = R_ > 0 ? R_ : r_rt;
+  const int NC = NC_ > 0 ? NC_ : nc_rt;
+  const int g = threadIdx.x & (kRowsGroup - 1);
+  const long long q =
+      (static_cast<long long>(blockIdx.x) * kRowsThreads + threadIdx.x) /
+      kRowsGroup;
+  if (q >= n) return;
+  const long long rowlen = static_cast<long long>(NC) * nf;
+  const int32_t* iq = idx + q * R;
+  const T* wq = w + q * R * NC;
+  T* o = out + q * nf;
+
+  if constexpr (R_ > 0) {
+    // the renderer's shapes: every load in flight before the first use
+    long long off[R_];
+    bool bad = false;
+#pragma unroll
+    for (int r = 0; r < R_; ++r) {
+      const long long row = __ldg(iq + r);
+      const bool b = row < 0 || row >= ns;
+      bad |= b;
+      off[r] = (b ? 0 : row) * rowlen;
+    }
+    if (bad && g == 0) atomicExch(err, 1);
+    T wv[R_ * NC_];
+#pragma unroll
+    for (int k = 0; k < R_ * NC_; ++k) wv[k] = __ldg(wq + k);
+    for (int f = g; f < nf; f += kRowsGroup) {
+      T v[R_ * NC_];
+#pragma unroll
+      for (int r = 0; r < R_; ++r)
+#pragma unroll
+        for (int c = 0; c < NC_; ++c)
+          v[r * NC_ + c] = __ldg(table + off[r] + c * nf + f);
+      T acc = T(0);
+#pragma unroll
+      for (int k = 0; k < R_ * NC_; ++k) acc += wv[k] * v[k];
+      o[f] = bad ? quiet_nan<T>() : acc;
+    }
+  } else {
+    bool bad = false;
+    for (int r = 0; r < R; ++r) {
+      const long long row = __ldg(iq + r);
+      bad |= row < 0 || row >= ns;
+    }
+    if (bad && g == 0) atomicExch(err, 1);
+    for (int f = g; f < nf; f += kRowsGroup) {
+      T acc = T(0);
+      if (!bad) {
+        for (int r = 0; r < R; ++r) {
+          const T* trow = table + static_cast<long long>(__ldg(iq + r)) * rowlen;
+          for (int c = 0; c < NC; ++c)
+            acc += __ldg(wq + r * NC + c) * __ldg(trow + c * nf + f);
+        }
+      }
+      o[f] = bad ? quiet_nan<T>() : acc;
+    }
+  }
+}
+
+template <typename T, int R_, int NC_>
+void launch_rows_as(const T* table, const int32_t* idx, const T* w, T* out,
+                    int* err, long long n, long long ns, int r, int nc, int nf,
+                    cudaStream_t stream) {
+  constexpr int per_block = kRowsThreads / kRowsGroup;
+  const long long blocks = (n + per_block - 1) / per_block;
+  quad_gather_rows<T, R_, NC_>
+      <<<static_cast<unsigned int>(blocks), kRowsThreads, 0, stream>>>(
+          table, idx, w, out, err, n, ns, r, nc, nf);
+}
+
+template <typename T>
+int launch_rows(const T* table, const int32_t* idx, const T* w, T* out,
+                int* err, long long n, long long ns, int r, int nc, int nf,
+                void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (n > 0) {
+    if (r == 4 && nc == 2) {
+      launch_rows_as<T, 4, 2>(table, idx, w, out, err, n, ns, r, nc, nf, stream);
+    } else if (r == 8 && nc == 2) {
+      launch_rows_as<T, 8, 2>(table, idx, w, out, err, n, ns, r, nc, nf, stream);
+    } else if (r == 8 && nc == 1) {
+      launch_rows_as<T, 8, 1>(table, idx, w, out, err, n, ns, r, nc, nf, stream);
+    } else if (r == 4 && nc == 1) {
+      launch_rows_as<T, 4, 1>(table, idx, w, out, err, n, ns, r, nc, nf, stream);
+    } else if (r == 1 && nc == 1) {
+      launch_rows_as<T, 1, 1>(table, idx, w, out, err, n, ns, r, nc, nf, stream);
+    } else {
+      launch_rows_as<T, 0, 0>(table, idx, w, out, err, n, ns, r, nc, nf, stream);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int NC, int NF>
 void launch_tiled(const T* table, const int32_t* idx, const T* w, T* out,
                   int* err, long long n, int ns, cudaStream_t stream) {
@@ -219,11 +400,20 @@ template <typename T>
 int launch(const T* table, const int32_t* idx, const T* w, T* out, int* err,
            long long n, int ns, int nc, int nf, int variant, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (variant == 0 && !((nc == 4 && nf == 9) || (nc == 2 && nf == 6)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 2 && nc > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    if (variant == 0 && nc == 4 && nf == 9) {
+    if (variant == 0 && nc == 4) {
       launch_tiled<T, 4, 9>(table, idx, w, out, err, n, ns, stream);
-    } else if (variant == 0 && nc == 2 && nf == 6) {
+    } else if (variant == 0) {
       launch_tiled<T, 2, 6>(table, idx, w, out, err, n, ns, stream);
+    } else if (variant == 2) {
+      constexpr long long per_block = kWideWarps * kWideQueries;
+      const long long blocks = (n + per_block - 1) / per_block;
+      quad_gather_wide<T>
+          <<<static_cast<unsigned int>(blocks), kWideWarps * 32, 0, stream>>>(
+              table, idx, w, out, err, n, ns, nc, nf);
     } else {
       constexpr int kThreads = 256;
       const long long total = n * nf;
@@ -252,4 +442,19 @@ extern "C" int quad_gather_f64(const double* table, const int32_t* idx,
                                int variant, void* stream) {
   return launch<double>(table, idx, w, out, err, n, ns, nc, nf, variant,
                         stream);
+}
+
+extern "C" int quad_gather_rows_f32(const float* table, const int32_t* idx,
+                                    const float* w, float* out, int* err,
+                                    long long n, long long ns, int r, int nc,
+                                    int nf, void* stream) {
+  return launch_rows<float>(table, idx, w, out, err, n, ns, r, nc, nf, stream);
+}
+
+extern "C" int quad_gather_rows_f64(const double* table, const int32_t* idx,
+                                    const double* w, double* out, int* err,
+                                    long long n, long long ns, int r, int nc,
+                                    int nf, void* stream) {
+  return launch_rows<double>(table, idx, w, out, err, n, ns, r, nc, nf,
+                             stream);
 }

@@ -5,7 +5,9 @@ A model is an object with `vals(x, k, a) -> FluidVars` and
 `convert(fv, sp) -> EmisInputs`, both over (npix, npts) tensors; a model
 with `timedep = True` takes the frame's time as `vals(x, k, a, time=t)`.
 Registered: FFJET, HOTSPOT, NUMDISK, PHATDISK, POWERLAW, SARIAF,
-SCHNITTMAN, SPHACC, THINDISK, TOY."""
+SCHNITTMAN, SPHACC, THINDISK, TOY, and the GRMHD snapshot models HARM,
+HARM3D, IHARM, HARMPI, THICKDISK, MB09, KORAL (KORALNTH), KORAL3D and its
+KORAL3D_DISK / _TOPJET / _BOTJET regions."""
 
 import math
 from dataclasses import dataclass
@@ -27,7 +29,13 @@ class FluidVars(NamedTuple):
     b: torch.Tensor       # magnetic four-vector (BL)
     rho2: torch.Tensor    # secondary density (nonthermal electrons)
     fnu: Optional[torch.Tensor] = None    # tabulated F_nu (PHATDISK)
-    nbins: Optional[torch.Tensor] = None  # nonthermal electron bins
+    nbins: Optional[torch.Tensor] = None  # nonthermal electron bins (KORAL)
+    kela: Optional[torch.Tensor] = None   # electron entropy (GRMHD models)
+    be: Optional[torch.Tensor] = None     # Bernoulli / T_ion (KORAL)
+    # further sampled columns by name (HARMPI's kelb..keld, a snapshot's
+    # extra fields): what convert needs travels with the sample, not on
+    # the model
+    extra: Optional[Dict[str, torch.Tensor]] = None
 
 
 class EmisInputs(NamedTuple):
@@ -62,6 +70,20 @@ class SourceParams:
     coefindx: Optional[tuple] = None
 
 
+def scale_sim_units(mbh, mdotcgs, mdot_code, rho, p, bmag):
+    """GRMHD code units -> cgs (fluid.f90:765-790).  Returns (ncgs, bcgs,
+    tempcgs, rhocgs)."""
+    lcgs = pc.G * mbh * pc.msun / pc.c ** 2
+    tcgs = lcgs / pc.c
+    rhocgs = mdotcgs / mdot_code / lcgs ** 3 * tcgs * rho
+    ncgs = rhocgs / pc.mp
+    safe = torch.where(rho > 0, rho, 1.0)
+    pcgs = p * rhocgs / safe * pc.c ** 2
+    tempcgs = pcgs / ncgs.clamp_min(1e-37) / pc.k
+    bcgs = bmag * (rhocgs / safe).sqrt() * pc.c * math.sqrt(4.0 * math.pi)
+    return ncgs, bcgs, tempcgs, rhocgs
+
+
 def sigma_cut(bcgs, rhocgs, tempcgs, ncgs, sigcut):
     """Zero out high-magnetization zones (fluid.f90:792-810).  Returns
     (rhocgs, ncgs, tempcgs)."""
@@ -79,6 +101,37 @@ def monika_e(rho, p, b, rlow, rhigh):
     b2 = beta * beta
     return torch.where(b > 0.0,
                        rhigh * b2 / (1.0 + b2) + rlow / (1.0 + b2), rhigh)
+
+
+def charles_e(rho, p, u, b, rlow, rhigh):
+    """EHT-notes electron temperature (fluid.f90:814-843); p is the
+    T_p + T_e type variable and u = T_p + 2 T_e (KORAL convention)."""
+    beta = 2.0 * rho * pc.k * p / pc.mp / (b * b).clamp_min(1e-37)
+    b2 = beta * beta
+    trat = torch.where(b > 0.0,
+                       rhigh * b2 / (1.0 + b2) + rlow / (1.0 + b2), rhigh)
+    return u / (2.0 + trat)
+
+
+def ressler_e(rho, kel):
+    """Electron-entropy temperature (fluid.f90:894-904)."""
+    gamma = 4.0 / 3.0
+    thetae = pc.mp / pc.m * kel * rho ** (gamma - 1.0)
+    return thetae * pc.m * pc.c2 / pc.k
+
+
+def werner_e(rho, bmag):
+    """Werner+2018 dissipation fraction (fluid.f90:906-911)."""
+    sig = bmag ** 2 / rho.clamp_min(1e-37) / 5.0
+    return 0.25 + 0.25 * (sig / (2.0 + sig)).sqrt()
+
+
+def nonthermale_b2(alpha, gmin, p1, bmagrho, bcgs):
+    """Jet nonthermal electron density where sigma > 1
+    (fluid.f90:914-923)."""
+    n = alpha * bcgs ** 2 / (8.0 * math.pi) / gmin \
+        * (p1 - 2.0) / (p1 - 1.0) / 8.2e-7
+    return torch.where(bmagrho > 1.0, n, 0.0)
 
 
 def toroidal_b(g_cov, u, bmag):
@@ -165,7 +218,9 @@ def load_fluid_model(name, *, device, **kwargs):
     """Instantiate a fluid model by fname on `device`
     (fluid.f90:163-243)."""
     from grtrans_tpu_torch.fluid import (analytic, disks, ffjet,  # noqa: F401
-                                         hotspot, sphacc)
+                                         harm, harm3d, harmpi, hotspot,
+                                         iharm, koral, mb09, sphacc,
+                                         thickdisk)
     factory = _REGISTRY.get(name.upper())
     if factory is None:
         raise NotImplementedError(

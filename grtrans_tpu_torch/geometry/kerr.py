@@ -2,7 +2,7 @@
 frame and null wavevectors.  Elementwise maps over tensors; the spin `a`
 is a Python float.  Port of the parts of grtrans_tpu/geometry/kerr.py on
 the render path (reference kerr.f90: krolikc :109, calcg :181, calc_nullp
-:255, metrics :337-400, LNRF frame :402-474, calc_polar_psi :954,
+:255, metrics :337-400, LNRF frame :402-474, calc_polar_psi :954, BL <-> KS shifts :131-162,
 calc_polvec :998, calc_kappapw :1047, plunging flow :1120-1190)."""
 
 import math
@@ -68,6 +68,27 @@ def metric_con(r, th, a):
          z,
          (d - a * a * sth * sth) / (d * rho2 * sth * sth)]  # phph
     return torch.stack(g, dim=-1)
+
+
+def bl2ks_time(r, t, a):
+    """BL -> KS time shift (kerr.f90:147-154)."""
+    sq = math.sqrt(1.0 - a * a)
+    return (t + torch.log(r * r - 2.0 * r + a * a)
+            + 1.0 / (2.0 * sq) * torch.log((r - 1.0 - sq) / (r - 1.0 + sq)))
+
+
+def bl2ks_phi(r, ph, a):
+    """BL -> KS azimuth shift (kerr.f90:156-162)."""
+    sq = math.sqrt(1.0 - a * a)
+    return ph + a / (2.0 * sq) * torch.log((r - 1.0 - sq) / (r - 1.0 + sq))
+
+
+def uks2ubl(uks, r, a):
+    """KS spherical four-vector -> BL (Font+1999; kerr.f90:131-144)."""
+    d = r * r - 2.0 * r + a * a
+    ut = uks[..., 0] - 2.0 * r / d * uks[..., 1]
+    uph = uks[..., 3] - a / d * uks[..., 1]
+    return torch.stack([ut, uks[..., 1], uks[..., 2], uph], dim=-1)
 
 
 def calc_rms(a):

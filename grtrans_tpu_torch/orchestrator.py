@@ -37,7 +37,12 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
     fluid of a mu-camera (or of one of its pixel blocks) are always traced
     once and reused by every (time, mdot) render of it, whatever its
     value; a time-dependent model (model.timedep) is sampled anew for
-    each frame, at time = it * cfg.dt.  standard=2 traces each ray to its
+    each frame, at time = it * cfg.dt.  Slow light (cfg.nload > 1 on a
+    model that holds a time series, model.nt_slices > 1; reference
+    pgrtrans.f90:177-191) samples every point at its own retarded time:
+    the delay from the camera to each ray's first point, less its least
+    value over the whole camera, is taken off the ray's time coordinate
+    before each frame is sampled at time = it * cfg.dt.  standard=2 traces each ray to its
     first crossing of the equatorial plane and renders that one point.
     Returns (ivals, ab, freqs): ivals (ncams, npix, nvals [+ 19 for
     extra=1]) and ab (2, npix) tensors on `device`, freqs the numpy
@@ -45,10 +50,6 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
     if unported:
         raise NotImplementedError(
             f"grtrans_run options not ported: {sorted(unported)}")
-    if cfg.nload > 1 and getattr(model, "nt_slices", 1) > 1:
-        # slow light samples a fluid time series at retarded times
-        raise NotImplementedError(
-            f"nload={cfg.nload} on a time series (slow light) is not ported")
     if cfg.prec != "f64":
         raise NotImplementedError(f"prec={cfg.prec!r} is not ported")
     if chunk is not None and chunk < 1:
@@ -62,6 +63,7 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
     if model is None:
         model = load_fluid_model(cfg.fname, device=device, **cfg.fargs)
     timedep = getattr(model, "timedep", False)
+    slow_light = cfg.nload > 1 and getattr(model, "nt_slices", 1) > 1
 
     def camera(mu0):
         return cam_mod.make_camera(a, float(mu0), a1, a2, b1, b2, nro, nphi,
@@ -83,6 +85,14 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
             ab = torch.stack([cam.alpha, cam.beta], dim=0)
         npix = cam.alpha.shape[0]
         step = npix if chunk is None else min(chunk, npix)
+        t0sh = None
+        if slow_light and use_uout:
+            # one minimum over the whole camera, not over a pixel block;
+            # without uout the trace starts at the camera and t is global
+            t0sh = geokerr.camera_delay(a, float(mu0), cam.alpha, cam.beta,
+                                        cam.l, cam.q2, cam.sm, cam.u0,
+                                        cfg.uout)
+            t0sh = t0sh - t0sh.min()
         # scan[i]: the pixel blocks of the i-th (time, mdot) render
         scan = [[] for _ in range(cfg.nt * cfg.nmdot)]
         for lo in range(0, npix, step):
@@ -95,11 +105,15 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
             else:
                 geo = geokerr.trace(*ray, nup, phi0=cfg.phi0,
                                     uout=cfg.uout if use_uout else None)
-            if not timedep:
+            if t0sh is not None:
+                t = geo.x[..., 0] - t0sh[blk, None]
+                geo = geo._replace(x=torch.cat([t[..., None],
+                                                geo.x[..., 1:]], dim=-1))
+            if not (timedep or slow_light):
                 fv = model.vals(geo.x, geo.k, a)
             renders = iter(scan)
             for it in range(cfg.nt):
-                if timedep:
+                if timedep or slow_light:
                     fv = model.vals(geo.x, geo.k, a, time=it * cfg.dt)
                 for mdot in cfg.mdots():
                     sp = _source_params(cfg, float(mdot))

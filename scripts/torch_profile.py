@@ -1,7 +1,8 @@
 """Where the time goes in one warm frame of the PyTorch port.
 
-    python3 scripts/torch_profile.py [--config ffjet|sariaf|hotspot|thindisk]
-                                     [--nn 100 100 400] [--out FILE]
+    python3 scripts/torch_profile.py
+        [--config ffjet|sariaf|hotspot|thindisk|harm3d] [--nn 100 100 400]
+        [--snapshot 288 128 128] [--out FILE]
 
 Renders one configuration in float64 on one CUDA card: `ffjet`, the
 FFJET/POLSYNCHPL flagship with the formal integrator (synthetic dump at
@@ -10,7 +11,11 @@ lsoda integrator, three frequencies); `hotspot`, one frame of the
 Broderick & Loeb (2006) orbiting spot (HOTSPOT + POLSYNCHPL, formal); or
 `thindisk`, the polarized thin disk (THINDISK + BBPOL, standard=2: one
 point a ray, four frequencies, 1024x1024 pixels unless --nn says
-otherwise).  A warm-up frame, one whole frame, then its stages one by one
+otherwise); or `harm3d`, a GRMHD snapshot frame (HARM3D + POLSYNCHTH,
+formal) on a seeded synthetic snapshot of --snapshot zones, for which the
+fluid sampling is also split into its query geometry (`_query`, with the
+fixed-count root finder of the theta map profiled alone as well) and the
+table gather (one quad_gather_rows launch).  A warm-up frame, one whole frame, then its stages one by one
 (geodesic trace, fluid sampling, render_rays, and, where rays are
 integrated, the Stokes march of the last frequency inside render_rays on
 its own), each under torch.profiler.  Prints one JSON object (also
@@ -89,7 +94,22 @@ def thindisk_setup(nn, dev):
     return cfg, load_fluid_model(cfg.fname, device=dev, **cfg.fargs)
 
 
-SETUPS = {"ffjet": ffjet_setup, "sariaf": sariaf_setup,
+SNAPSHOT_NX = [288, 128, 128]
+
+
+def harm3d_setup(nn, dev):
+    """(config, model) of the GRMHD snapshot frame at Sgr A*."""
+    from grtrans_tpu_torch.testing.grmhd_dump import A, harm3d_dump
+    cfg = GrtransConfig(
+        fname="HARM3D", ename="POLSYNCHTH", nvals=4, spin=A, standard=1,
+        nn=nn, uout=0.04, mbh=4.3e6, mumin=0.5, mumax=0.5, fmin=2.3e11,
+        fmax=2.3e11, iname="formal", mdotmin=4e13, mdotmax=4e13,
+        gridvals=(-15.0, 15.0, -15.0, 15.0), gmin=10.0, muval=0.25)
+    return cfg, load_fluid_model("HARM3D", device=dev,
+                                 dump=harm3d_dump(*SNAPSHOT_NX))
+
+
+SETUPS = {"harm3d": harm3d_setup, "ffjet": ffjet_setup, "sariaf": sariaf_setup,
           "hotspot": hotspot_setup, "thindisk": thindisk_setup}
 DEFAULT_NN = {"thindisk": (1024, 1024, 1)}
 
@@ -120,8 +140,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(SETUPS), default="ffjet")
     ap.add_argument("--nn", type=int, nargs=3, default=None)
+    ap.add_argument("--snapshot", type=int, nargs=3, default=SNAPSHOT_NX,
+                    help="zones of the harm3d config's synthetic snapshot")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
+    SNAPSHOT_NX[:] = args.snapshot
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -149,6 +172,19 @@ def main():
     fv, stages["fluid_vals"] = profiled(
         lambda: model.vals(geo.x, geo.k, spin, **frame_time))
     ei = model.convert(fv, sp)
+    if args.config == "harm3d":
+        # vals = query geometry (root finder inside) + gather + assemble
+        q, stages["vals: _query"] = profiled(lambda: model._query(geo.x, spin))
+        _, stages["vals: theta root finder (part of _query)"] = profiled(
+            lambda: model.x123_of_blks(q["r"], q["th"], q["th"]))
+        table, names = model._stacked_fields()
+        ns = table.shape[0] // model.nt_slices
+        cols, stages["vals: gather (quad_gather_rows)"] = profiled(
+            lambda: model._gather_cols(table, ns, model.uniqx2.shape[0],
+                                       model.uniqx3.shape[0], q, len(names)))
+        _, stages["vals: _assemble"] = profiled(
+            lambda: model._assemble(cols, names, q, spin))
+        del q, cols
 
     # the Stokes march is profiled on its own, on the arguments that
     # render_rays hands it for the last frequency (profilers do not nest)

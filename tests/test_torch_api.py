@@ -204,16 +204,14 @@ def _tiny(**change):
     return kw
 
 
-def _run_on_a_time_series(**kw):
-    """nload > 1 is slow light only on a model that holds several time
-    slices, which the GRMHD models will."""
-    from grtrans_tpu_torch.config import GrtransConfig
-    from grtrans_tpu_torch.fluid.base import load_fluid_model
-    from grtrans_tpu_torch.orchestrator import grtrans_run
-    cfg = GrtransConfig(**kw)
-    model = load_fluid_model(cfg.fname, device="cpu", **cfg.fargs)
-    model.nt_slices = 3
-    return grtrans_run(cfg, model, device="cpu")
+def _snapshot_kw(fname):
+    """A seeded synthetic GRMHD snapshot handed to both packages as the
+    same numpy dump dict."""
+    from grtrans_tpu_torch.testing import grmhd_dump
+    dump = grmhd_dump.harm_dump(16, 12) if fname == "HARM" \
+        else grmhd_dump.harm3d_dump(16, 12, 8)
+    return dict(fname=fname, spin=grmhd_dump.A, uout=0.04, mdotmin=3e15,
+                mdotmax=3e15, gmin=10.0, fargs=dict(dump=dump))
 
 
 def _grtrans_run(**options):
@@ -224,12 +222,11 @@ def _grtrans_run(**options):
 
 UNPORTED = {
     "mixed": lambda tmp: Grtrans(**_tiny(prec="mixed")).run(device="cpu"),
-    "nload=2": lambda tmp: _run_on_a_time_series(**_tiny(nload=2)),
     "gdfile": lambda tmp: _grtrans_run(gdfile=str(tmp / "geo.npz")),
     "mesh": lambda tmp: _grtrans_run(mesh=object()),
     "fits": lambda tmp: Grtrans(**_tiny()).run(device="cpu").write_output(
         tmp / "cams.fits", fmt="fits"),
-    "HARM": lambda tmp: Grtrans(**_tiny(fname="HARM")).run(device="cpu"),
+    "HARM2D": lambda tmp: Grtrans(**_tiny(fname="HARM2D")).run(device="cpu"),
 }
 
 
@@ -242,9 +239,10 @@ def test_unported_options_raise_by_name(name, tmp_path):
 @pytest.mark.parametrize("change,columns", [
     (dict(fname="THINDISK", ename="BB", standard=2, fargs={}), 4),
     (dict(ename="BB"), 4), (dict(standard=2), 4), (dict(extra=1), 23),
-    (dict(debug=1), 4), (dict(nload=2), 4)],
+    (dict(debug=1), 4), (dict(nload=2), 4), (_snapshot_kw("HARM"), 4),
+    (_snapshot_kw("HARM3D"), 4)],
     ids=["THINDISK", "BB", "standard=2", "extra=1", "debug=1",
-         "nload=2 on one slice"])
+         "nload=2 on one slice", "HARM", "HARM3D"])
 def test_ported_options_render(change, columns):
     """Options that render, with the shape and Stokes I that grtrans_tpu
     gives them."""

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernel of the port against its plain PyTorch
-version, on an NVIDIA card.
+"""The hand-written CUDA kernels of the port against their plain PyTorch
+versions, on an NVIDIA card.
 
 These tests import neither JAX nor grtrans_tpu, so they also run on a
 machine that has only the port's dependencies:
@@ -95,8 +95,9 @@ def test_quad_gather_flags_out_of_range_rows(dev, nc, nf):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 127, 1024 * 1024 + 3])
 def test_quad_gather_at_the_phatdisk_shape(dev, n):
-    """PHATDISK's pair-packed table, (500, 2 x 101) float64: the generic
-    kernel, at query counts ragged against its block."""
+    """PHATDISK's pair-packed table, (500, 2 x 101) float64: the wide-row
+    kernel the wrapper picks and the generic one, at query counts ragged
+    against their blocks."""
     rng = np.random.default_rng(2)
     table = torch.as_tensor(rng.standard_normal((500, 202)), device=dev)
     idx = torch.as_tensor(rng.integers(0, 499, n), dtype=torch.int32,
@@ -111,6 +112,10 @@ def test_quad_gather_at_the_phatdisk_shape(dev, n):
     assert qg.error_flag(dev).item() == 0
     assert out.shape == (n, 101)
     assert (out - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
+    wide = qg.quad_gather.launches_by_kernel["wide"]
+    forced = qg.quad_gather(table, idx, w, 2, 101, generic=True)
+    assert qg.quad_gather.launches_by_kernel["wide"] == wide
+    assert (forced - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -138,3 +143,104 @@ def test_phatdisk_vals_on_the_card_match_the_cpu(dev):
         assert torch.equal(torch.isfinite(g), fin)
         assert (g[fin] - w[fin]).abs().max().item() \
             <= 1e-12 * w[fin].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nc,nf", [(2, 32), (3, 45), (32, 33), (1, 257)])
+def test_wide_row_kernel_matches_plain(dev, dtype, nc, nf):
+    """The wide-row kernel at widths ragged against the warp, at nc up to
+    the 32 weights a warp can share, with a flagged row in the middle."""
+    rng = np.random.default_rng(4)
+    n, ns = 1003, 40
+    table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, ns, n), dtype=torch.int32,
+                          device=dev)
+    w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, nc)), dtype=dtype,
+                        device=dev)
+    before = qg.quad_gather.launches_by_kernel["wide"]
+    out = qg.quad_gather(table, idx, w, nc, nf)
+    ref = qg.quad_gather_ref(table, idx, w, nc, nf)
+    torch.cuda.synchronize()
+    assert qg.quad_gather.launches_by_kernel["wide"] == before + 1
+    assert qg.error_flag(dev).item() == 0
+    assert (out - ref).abs().max().item() <= TOL[dtype] * \
+        ref.abs().max().item()
+    flag = qg.error_flag(dev)
+    try:
+        idx[500] = ns
+        out = qg.quad_gather(table, idx, w, nc, nf)
+        torch.cuda.synchronize()
+        assert flag.item() == 1 and torch.isnan(out[500]).all()
+        keep = torch.arange(n, device=dev) != 500
+        assert (out[keep] - ref[keep]).abs().max().item() <= TOL[dtype] * \
+            ref.abs().max().item()
+    finally:
+        flag.zero_()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 15, 4099, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r,nc,nf", [(4, 2, 10), (8, 2, 11), (8, 1, 6),
+                                     (4, 1, 20), (1, 1, 14), (3, 2, 5)],
+                         ids=["trilinear", "slowlight", "bins3d", "bins2d",
+                              "nearest", "runtime"])
+def test_quad_gather_rows_kernel_matches_plain(dev, dtype, r, nc, nf, n):
+    """Every instantiation of quad_gather_rows and its run-time (R, nc)
+    form, at query counts ragged against the 16 queries of a block."""
+    rng = np.random.default_rng(5)
+    ns = 5000
+    table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, ns, (n, r)), dtype=torch.int32,
+                          device=dev)
+    w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, r, nc)), dtype=dtype,
+                        device=dev)
+    before = qg.quad_gather_rows.launches
+    out = qg.quad_gather_rows(table, idx, w, nc, nf)
+    ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
+    torch.cuda.synchronize()
+    assert qg.quad_gather_rows.launches == before + 1
+    assert qg.error_flag(dev).item() == 0
+    assert out.shape == (n, nf) and out.dtype == dtype
+    assert (out - ref).abs().max().item() <= TOL[dtype] * \
+        ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,nc", [(4, 2), (3, 2)], ids=["unrolled", "runtime"])
+def test_quad_gather_rows_flags_out_of_range_rows(dev, r, nc):
+    nf = 10
+    table = torch.ones((16, nc * nf), dtype=torch.float64, device=dev)
+    idx = torch.zeros((4, r), dtype=torch.int32, device=dev)
+    idx[1, r - 1] = 16
+    idx[2, 0] = -1
+    w = torch.ones((4, r, nc), dtype=torch.float64, device=dev)
+    flag = qg.error_flag(dev)
+    try:
+        out = qg.quad_gather_rows(table, idx, w, nc, nf)
+        torch.cuda.synchronize()
+        assert flag.item() == 1
+        assert torch.isnan(out[1:3]).all()
+        assert (out[[0, 3]] == r * nc).all()
+    finally:
+        flag.zero_()
+
+
+@pytest.mark.cuda
+def test_quad_gather_rows_offsets_past_int32(dev):
+    """Rows whose element offset idx * (nc * nf) exceeds 2^31: the kernel
+    forms it in 64 bits."""
+    nc, nf = 2, 10
+    ns = 2 ** 31 // (nc * nf) + 4096          # 107 M rows x 20 float32, 8.6 GB
+    table = torch.zeros((ns, nc * nf), dtype=torch.float32, device=dev)
+    top = torch.arange(ns - 4, ns, dtype=torch.int32, device=dev)
+    table[top.long()] = torch.arange(4.0, device=dev)[:, None] + 1.0
+    idx = top.view(1, 4).contiguous()
+    w = torch.ones((1, 4, nc), dtype=torch.float32, device=dev)
+    out = qg.quad_gather_rows(table, idx, w, nc, nf)
+    torch.cuda.synchronize()
+    assert qg.error_flag(dev).item() == 0
+    assert (out == 2.0 * (1 + 2 + 3 + 4)).all()

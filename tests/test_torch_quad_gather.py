@@ -17,7 +17,9 @@ from grtrans_tpu.emis import polsynchpl as jpl
 from grtrans_tpu.ops.pallas_gather import (quad_combine, vmem_row_gather,
                                            xla_quad_gather)
 from grtrans_tpu_torch.emis import polsynchpl as tpl
-from grtrans_tpu_torch.ops.quad_gather import quad_gather, quad_gather_ref
+from grtrans_tpu_torch.ops.quad_gather import (quad_gather, quad_gather_ref,
+                                               quad_gather_rows,
+                                               quad_gather_rows_ref)
 
 NS, NC, NF, N = 16384, 4, 9, 4096
 TOL = {np.float32: 1e-6, np.float64: 1e-14}
@@ -83,11 +85,11 @@ def test_g_all_matches_jax(p):
     np.testing.assert_allclose(out, ref, rtol=1e-12, atol=0.0)
 
 
-@pytest.mark.parametrize("nc,nf", [(4, 9), (2, 6), (3, 5)])
+@pytest.mark.parametrize("nc,nf", [(4, 9), (2, 6), (3, 5), (2, 101)])
 def test_kernel_choice_does_not_change_the_cpu_result(nc, nf):
-    """`generic=True` only picks between the two CUDA kernels; on the CPU
-    both spellings go to the plain version, for the tiled shapes and any
-    other."""
+    """`generic=True` only picks between the CUDA kernels; on the CPU both
+    spellings go to the plain version, for the tiled shapes, the wide-row
+    shape and any other."""
     table, idx, w = _inputs(np.float64, n=257, nc=nc, nf=nf, ns=300, seed=5)
     args = (torch.from_numpy(table), torch.from_numpy(idx),
             torch.from_numpy(w), nc, nf)
@@ -109,3 +111,33 @@ def test_wrapper_rejects_bad_arguments():
         quad_gather(table[:, ::2], idx, w[:, :2], 2, 9)
     with pytest.raises(NotImplementedError):
         quad_gather(table.to("meta"), idx.to("meta"), w.to("meta"), NC, NF)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_one_row_of_quad_gather_rows_is_quad_gather(dtype):
+    """R = 1 of the multi-row gather is quad_gather, and so the Pallas
+    kernel's rows combined by quad_combine."""
+    table, idx, w = _inputs(dtype, n=1024)
+    args = [torch.from_numpy(v) for v in (table, idx[:, None], w[:, None])]
+    out = quad_gather_rows(*args, NC, NF)
+    assert torch.equal(out, quad_gather(torch.from_numpy(table),
+                                        torch.from_numpy(idx),
+                                        torch.from_numpy(w), NC, NF))
+    assert torch.equal(out, quad_gather_rows_ref(*args, NC, NF))
+    rows = vmem_row_gather(jnp.asarray(table), jnp.asarray(idx),
+                           interpret=True)
+    _close(out.numpy(), quad_combine(rows, jnp.asarray(w), NF), TOL[dtype])
+
+
+@pytest.mark.parametrize("r", [4, 8])
+def test_quad_gather_rows_matches_xla_gathers(r):
+    """R rows a query against R fused XLA gather + combines, summed."""
+    rng = np.random.default_rng(6)
+    table = rng.standard_normal((700, 4 * 10))
+    idx = rng.integers(0, 700, (513, r)).astype(np.int32)
+    w = rng.uniform(0.0, 1.0, (513, r, 4))
+    out = quad_gather_rows(torch.from_numpy(table), torch.from_numpy(idx),
+                           torch.from_numpy(w), 4, 10).numpy()
+    ref = sum(xla_quad_gather(jnp.asarray(table), jnp.asarray(idx[:, i]),
+                              jnp.asarray(w[:, i]), 10) for i in range(r))
+    _close(out, ref, 1e-14)

@@ -75,8 +75,8 @@ def test_registry_load_and_unported_options(tmp_path):
     model = convert.ffjet_from_arrays(*load_ffjet_file(dfile), device="cpu")
     preloaded, _, _ = trun(cfg, model, device="cpu")
     assert torch.equal(by_name, preloaded)
-    for change in (dict(prec="mixed"), dict(fname="HARM"),
-                   dict(fname="KORAL"), dict(fname="IHARM")):
+    for change in (dict(prec="mixed"), dict(fname="RIAF"),
+                   dict(fname="HARM2D"), dict(fname="KORALRAD")):
         with pytest.raises(NotImplementedError):
             trun(dataclasses.replace(cfg, **change), device="cpu")
     for option in (dict(gdfile=str(tmp_path / "geo.npz")),
