@@ -9,9 +9,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      main paths' shapes (FFJET 4e6 queries x (16384, 36) table in f64 and
      f32; the POLSYNCHPL cutoff table (201, 12); PHATDISK's pair-packed
      table (500, 2 x 101) at the 1024^2 queries of its frame, which the
-     wrapper sends to the wide-row kernel) on uniformly random rows,
-     check the out-of-range flag, and time with CUDA events: the kernel
-     the wrapper picks, the generic kernel, the plain version and
+     wrapper sends to the wide-row kernel; the 2-D tables of the tiled
+     kernel's other shapes at 4e6 queries: HARM 4 x 10 on a 32 x 24 and a
+     288 x 128 grid, KORAL 4 x 11, SPHACC 2 x 2, NUMDISK 4 x 1 and the
+     per-sample-p POLSYNCHPL table 4 x 6) on uniformly random rows, check
+     the out-of-range flag, and time with CUDA events: the kernel the
+     wrapper picks, the generic kernel, the plain version and
      embedding_bag (the one-call PyTorch yardstick), beside the bound
      computed from the bytes the call must move;
   4. render the FFJET flagship (POLSYNCHPL, 100x100 pixels x 400 points,
@@ -45,12 +48,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      render with extra=1 at 16x16 x 64 (Stokes and each of the 19 extra
      channels).
  11. quad_gather_rows, the multi-row gather of the GRMHD snapshot
-     samplers, against its plain version at a 288x128x128 snapshot's table
+     samplers: its tiled kernel with and without deduplication (a warp's
+     lanes sharing a row's copy, which the port runs) and its simple
+     kernel against the plain version at a 288x128x128 snapshot's table
      (4,718,592 rows of 2 x 10) with 4e6 queries of R = 4 rows in f64 and
-     f32, of R = 8 rows on three slices, and HARM's 2-D shape (4 x 10
-     through quad_gather); the wide-row kernel at ragged widths; the
-     out-of-range flag of both; timed like phase 3 (embedding_bag on the
-     table viewed as (2 NS, nf) is the library yardstick);
+     f32, of R = 8 rows on three slices, of R = 1 (HARMPI's 1 x 10), on a
+     stream whose queries all name one row; the simple kernel alone where
+     the wrapper sends only it: KORAL3D's bins (R = 8 and R = 4 of 1 x 6,
+     ragged last tile; also timed from CUDA graphs, without the host's
+     launch cost) and rows the bulk copy cannot take (2 x 11 in f32); the
+     wide-row kernel at ragged widths; the out-of-range flag of every
+     kernel; timed in the order plain, embedding_bag, simple, tiled
+     without and with deduplication, and back (embedding_bag on the table
+     viewed as (2 NS, nf) is the library yardstick);
  12. a HARM3D snapshot frame (POLSYNCHTH, formal, 100x100 x 400, float64)
      on a seeded synthetic 288x128x128 snapshot through
      Grtrans(...).run(model=...): finite, I >= 0, total flux in Jy at Sgr
@@ -62,9 +72,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      on a brightening series; on a 26 M wide camera, whose rays are all
      clear of a fault that camera_delay shares with grtrans_tpu, its flux
      lies between the fast-light fluxes of the oldest and the newest slice
-     by more than 1%;
+     by more than 1%; the kernel timed once more on the slow-light frame's
+     own index stream (R = 8);
  14. the card against the port's CPU run at 16x16 x 64 for HARM3D, IHARM,
-     THICKDISK, KORAL3D with SYNCHBIN, HARM and HARMPI.
+     THICKDISK, KORAL3D with SYNCHBIN, HARM and HARMPI;
+ 15. a HARM 2-D snapshot frame at full width (288x128 synthetic dump, the
+     HARM3D frame's camera and physics, 100x100 x 400, f64) through
+     Grtrans(...).run(model=...), launches of the tiled quad_gather kernel
+     counted; the kernel timed once more on that frame's index stream.
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -93,6 +108,7 @@ EXTRA_RTOL = 1e-8
 DISK_NN = (1024, 1024, 1)             # thin-disk camera: one point a ray
 HOTSPOT_FRAMES = 6
 SNAPSHOT_NX = (288, 128, 128)         # the EHT library's iharm3d resolution
+HARM2D_NX = SNAPSHOT_NX[:2]           # its r-theta grid, for the 2-D models
 SNAPSHOT_MDOT = 4e13                  # g/s: ~1 Jy at 230 GHz from Sgr A*
 SGRA_DISTANCE_CM = 8.178e3 * 3.0857e18
 ROWS_TOL = {torch.float64: 1e-14, torch.float32: 2e-6}
@@ -166,6 +182,28 @@ def cuda_ms(fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=REPS):
+    """Device time of fn() per call: reps calls captured in one CUDA graph
+    and replayed, so that the host's cost of a launch, which sets the pace
+    of a loop of small launches, is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM device memory rate
 # peak rates outside the tensor cores: float32 from the H100 data sheet,
 # float64 at half of it
@@ -188,12 +226,16 @@ def reset_counts(qg):
     qg.quad_gather.launches = 0
     qg.quad_gather.launches_by_kernel.clear()
     qg.quad_gather_rows.launches = 0
+    qg.quad_gather_rows.launches_by_kernel.clear()
 
 
 def read_counts(qg):
-    return dict(quad_gather=qg.quad_gather.launches,
-                wide=qg.quad_gather.launches_by_kernel["wide"],
-                quad_gather_rows=qg.quad_gather_rows.launches)
+    by, rows = (qg.quad_gather.launches_by_kernel,
+                qg.quad_gather_rows.launches_by_kernel)
+    return dict(quad_gather=qg.quad_gather.launches, tiled=by["tiled"],
+                wide=by["wide"], generic=by["generic"],
+                quad_gather_rows=qg.quad_gather_rows.launches,
+                rows_tiled=rows["tiled"], rows_simple=rows["simple"])
 
 
 def rows_bound_ms(idx, w, ns, nc, nf):
@@ -211,34 +253,54 @@ def rows_bound_ms(idx, w, ns, nc, nf):
                                  else "operations"), distinct
 
 
-def check_rows(qg, name, table, idx, w, nc, nf, reps=10):
-    """quad_gather_rows against its plain version on the card, then CUDA
-    event times in the order plain, embedding_bag, kernel, kernel,
-    embedding_bag, plain.  Returns the dict of mean times, bound and
-    max_abs_err."""
+def check_rows(qg, name, table, idx, w, nc, nf, reps=10, graph=False):
+    """quad_gather_rows against its plain version on the card, each kernel
+    that takes the shape (simple; tiled without and with deduplication),
+    then CUDA event times in the order plain, embedding_bag, simple, tiled
+    without and with deduplication, and back; with `graph`, the kernels
+    once more from CUDA graphs (graph_ms: device time without the host's
+    launch cost), "<kernel> graph".  Returns the dict of mean times
+    ("kernel": the one the wrapper picks), bound and the largest
+    max_abs_err of the kernels."""
     n, r = idx.shape
     ns = table.shape[0]
-    out = qg.quad_gather_rows(table, idx, w, nc, nf)
+    tiled = qg.rows_kernel(r, nc, nf, table.element_size(),
+                           table.data_ptr() % 16 == 0) == "tiled"
+
+    def simple():
+        return qg.quad_gather_rows(table, idx, w, nc, nf, simple=True)
+
+    def nodedup():
+        return qg.quad_gather_rows(table, idx, w, nc, nf, dedup=False)
+
+    def warp():
+        return qg.quad_gather_rows(table, idx, w, nc, nf)
+
+    kernels = [simple, nodedup, warp] if tiled else [simple]
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
-    torch.cuda.synchronize()
     # a ray's samples past its end carry NaN weights: NaN in both
     fin = torch.isfinite(ref)
-    if not torch.equal(torch.isfinite(out), fin):
-        raise AssertionError(f"{name}: kernel and plain differ in where "
-                             "they are finite")
-    err = (out - ref)[fin].abs().max().item()
     scale = ref[fin].abs().max().item()
     tol = ROWS_TOL[table.dtype]
-    if not err <= tol * scale:
-        raise AssertionError(f"{name}: max|kernel - plain| {err} > "
-                             f"{tol} * {scale}")
-    if qg.error_flag(table.device).item() != 0:
-        raise AssertionError(f"{name}: out-of-range flag set")
+    errs = {}
+    for fn in kernels:
+        out = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isfinite(out), fin):
+            raise AssertionError(f"{name}: {fn.__name__} kernel and plain "
+                                 "differ in where they are finite")
+        errs[fn.__name__] = (out - ref)[fin].abs().max().item()
+        if not errs[fn.__name__] <= tol * scale:
+            raise AssertionError(f"{name}: max|{fn.__name__} - plain| "
+                                 f"{errs[fn.__name__]} > {tol} * {scale}")
+        if qg.error_flag(table.device).item() != 0:
+            raise AssertionError(f"{name}: out-of-range flag set")
+        del out
+    del ref
     bag_idx = (idx.long()[:, :, None] * nc
                + torch.arange(nc, device=idx.device)).reshape(n, r * nc)
     bag_table = table.view(ns * nc, nf)
     bag_w = w.reshape(n, r * nc)
-    del out, ref
 
     def plain():
         return qg.quad_gather_rows_ref(table, idx, w, nc, nf)
@@ -247,26 +309,31 @@ def check_rows(qg, name, table, idx, w, nc, nf, reps=10):
         return torch.nn.functional.embedding_bag(
             bag_idx, bag_table, per_sample_weights=bag_w, mode="sum")
 
-    def kernel():
-        return qg.quad_gather_rows(table, idx, w, nc, nf)
-
     lib_err = (library() - plain())[fin].abs().max().item()
     del fin
     times = {}
-    for fn in (plain, library, kernel, kernel, library, plain):
+    order = [plain, library, *kernels]
+    for fn in order + order[::-1]:
         times.setdefault(fn.__name__, []).append(cuda_ms(fn, reps))
+    if graph:
+        for fn in kernels + kernels[::-1]:
+            times.setdefault(f"{fn.__name__} graph", []).append(
+                graph_ms(fn, reps))
     bound, bound_by, distinct = rows_bound_ms(idx, w, ns, nc, nf)
     res = {k: sum(v) / len(v) for k, v in times.items()}
-    res.update(bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+    picked = "warp" if tiled else "simple"
+    res.update(kernel=res[picked], bound_ms=bound, bound_by=bound_by,
+               max_abs_err=max(errs.values()), picked=picked)
     print(f"{name}: N={n} R={r} table=({ns}, {nc * nf}) {table.dtype}, "
-          f"{distinct} distinct rows: max|kernel - plain| {err:.3e} (max|plain| "
-          f"{scale:.3e}, bar {tol:g} of it); kernel "
-          + "/".join(f"{t:.4f}" for t in times["kernel"])
-          + " ms, plain " + "/".join(f"{t:.4f}" for t in times["plain"])
-          + " ms, embedding_bag "
-          + "/".join(f"{t:.4f}" for t in times["library"])
-          + f" ms; bound {bound:.4f} ms by {bound_by} (share of bound "
-          f"{bound / res['kernel']:.3f}); max|embedding_bag - plain| "
+          f"{distinct} distinct rows: max|kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (max|plain| {scale:.3e}, bar {tol:g} of it); ms "
+          + "; ".join(f"{k} " + "/".join(f"{t:.4f}" for t in v)
+                      for k, v in times.items())
+          + f"; bound {bound:.4f} ms by {bound_by}; share of bound "
+          + ", ".join(f"{fn.__name__} {bound / res[fn.__name__]:.3f}"
+                      for fn in kernels)
+          + f" (the wrapper picks {picked}); max|embedding_bag - plain| "
           f"{lib_err:.2e}")
     return res
 
@@ -294,21 +361,46 @@ def rows_phase(dev, qg):
     shapes["snapshot R=4 f32"] = check_rows(
         qg, "snapshot R=4 f32", t32, idx, w.float(), nc, nf)
     del t32
+    # every query on one row: one distinct row a tile, the deduplication's
+    # worst case
+    shapes["snapshot R=4 f64, one row"] = check_rows(
+        qg, "snapshot R=4 f64, one row", table[:ns],
+        torch.full_like(idx, ns // 2), w, nc, nf)
     idx, w = random_rows(3 * ns, N_QUERIES, 8, nc, torch.float64, dev)
     shapes["three slices R=8 f64"] = check_rows(
         qg, "three slices R=8 f64", table, idx, w, nc, nf)
     del table, idx, w
     torch.cuda.empty_cache()
-    # KORAL3D's binned population: 8 rows of a plain table
+    # HARMPI's shape: one row of the plain (zones, 10) table a sample
+    table = torch.randn((ns, nf), generator=g, dtype=torch.float64,
+                        device=dev)
+    idx, w = random_rows(ns, N_QUERIES, 1, 1, torch.float64, dev)
+    shapes["harmpi R=1 nc=1 f64"] = check_rows(
+        qg, "harmpi R=1 nc=1 f64", table, idx, w, 1, nf)
+    del table, idx, w
+    torch.cuda.empty_cache()
+    # KORAL3D's binned population: 8 (3-D) or 4 (2-D) rows of a plain
+    # table; 100,003 queries leave a ragged last tile.  These launches
+    # are short enough that a loop of them is paced by the host, so they
+    # are also timed from CUDA graphs
     table = torch.randn((100_000, 6), generator=g, dtype=torch.float64,
                         device=dev)
-    idx, w = random_rows(100_000, 100_003, 8, 1, torch.float64, dev)
-    shapes["bins R=8 nc=1 f64"] = check_rows(qg, "bins R=8 nc=1 f64", table,
-                                             idx, w, 1, 6)
-    # HARM's 2-D shape, a 32 x 24 grid's corner-packed table
-    err, times = check_kernel(qg, "harm 2-D f64", 768, 4, 10, torch.float64,
-                              dev)
-    shapes["harm 2-D f64"] = dict(times, max_abs_err=err)
+    for r in (8, 4):
+        idx, w = random_rows(100_000, 100_003, r, 1, torch.float64, dev)
+        shapes[f"bins R={r} nc=1 f64"] = check_rows(
+            qg, f"bins R={r} nc=1 f64", table, idx, w, 1, 6, graph=True)
+    # rows the bulk copy cannot take: KORAL3D's 2 x 11 in float32
+    table = torch.randn((1_000_000, 22), generator=g, dtype=torch.float32,
+                        device=dev)
+    idx, w = random_rows(1_000_000, 1_000_000, 4, 2, torch.float32, dev)
+    before = qg.quad_gather_rows.launches_by_kernel["simple"]
+    qg.quad_gather_rows(table, idx, w, 2, 11)
+    if qg.quad_gather_rows.launches_by_kernel["simple"] != before + 1:
+        raise AssertionError("2 x 11 float32 did not go to the simple kernel")
+    shapes["koral3d R=4 2x11 f32"] = check_rows(
+        qg, "koral3d R=4 2x11 f32", table, idx, w, 2, 11)
+    del table, idx, w
+    torch.cuda.empty_cache()
     # the wide-row kernel at widths ragged against the warp
     for nc_, nf_, dtype in ((2, 101, torch.float32), (3, 45, torch.float64),
                             (1, 257, torch.float64)):
@@ -324,7 +416,7 @@ def rows_phase(dev, qg):
                        nf_)
         if qg.quad_gather.launches_by_kernel["wide"] != before + 1:
             raise AssertionError("the wrapper did not pick the wide kernel")
-    # the error flag of both new kernels
+    # the error flag of the wide and the rows kernels
     flag = qg.error_flag(dev)
     tb = torch.ones((16, 202), dtype=torch.float64, device=dev)
     out = qg.quad_gather(tb, torch.tensor([0, 16, 3], dtype=torch.int32,
@@ -336,19 +428,26 @@ def rows_phase(dev, qg):
             or not (out[[0, 2]] == 2).all():
         raise AssertionError("wide kernel: out-of-range index not flagged")
     flag.zero_()
-    idx = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    idx = torch.zeros((200, 4), dtype=torch.int32, device=dev)
     idx[1, 2] = 16
-    out = qg.quad_gather_rows(tb[:, :20].contiguous(), idx,
-                              torch.ones((3, 4, 2), dtype=torch.float64,
-                                         device=dev), 2, 10)
-    torch.cuda.synchronize()
-    if flag.item() != 1 or not torch.isnan(out[1]).all() \
-            or not (out[[0, 2]] == 8).all():
-        raise AssertionError("quad_gather_rows: out-of-range index not "
-                             "flagged")
-    flag.zero_()
-    print("wide and rows kernels: out-of-range index flagged, row NaN, "
-          "others untouched")
+    idx[199, 0] = -1
+    bad = torch.zeros(200, dtype=torch.bool, device=dev)
+    bad[[1, 199]] = True
+    for kernel in ("none", "warp", "simple"):
+        out = qg.quad_gather_rows(tb[:, :20].contiguous(), idx,
+                                  torch.ones((200, 4, 2), dtype=torch.float64,
+                                             device=dev), 2, 10,
+                                  simple=kernel == "simple",
+                                  dedup=kernel == "warp")
+        torch.cuda.synchronize()
+        if flag.item() != 1 or not torch.isnan(out[bad]).all() \
+                or not (out[~bad] == 8).all():
+            raise AssertionError(f"quad_gather_rows {kernel}: out-of-range "
+                                 "index not flagged")
+        flag.zero_()
+    print("wide and rows kernels (tiled without and with deduplication, "
+          "simple): "
+          "out-of-range index flagged, its query NaN, others untouched")
     return shapes
 
 
@@ -459,7 +558,7 @@ def main():
 
 
 def ffjet_phases(dev, qg):
-    """Phases 4 and 5.  Returns (launches of the counted render, times of
+    """Phases 4 and 5.  Returns (counts of the counted render, times of
     the kernel on that frame's index stream)."""
     from grtrans_tpu_torch import convert, driver
     from grtrans_tpu_torch.config import GrtransConfig
@@ -477,12 +576,13 @@ def ffjet_phases(dev, qg):
         model = convert.ffjet_from_arrays(grids, fields, dev)
 
         # 4. the main path, counted
-        qg.quad_gather.launches = 0
+        reset_counts(qg)
         t0 = time.perf_counter()
         ivals, _, _ = grtrans_run(cfg, model, device=dev)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches = qg.quad_gather.launches
+        counts = read_counts(qg)
+        launches = counts["quad_gather"]
         if launches == 0:
             raise AssertionError("FFJET path never launched quad_gather")
         if qg.error_flag(dev).item() != 0:
@@ -551,9 +651,10 @@ def ffjet_phases(dev, qg):
         distinct = idx.unique().numel()
         print(f"frame index stream: {idx.numel()} queries, {distinct} "
               f"distinct rows of {table.shape[0]}")
-        compare_gather(qg, "ffjet f64, frame's rows", table, idx, w, nc, nf)
-        frame_times = time_gather(qg, "ffjet f64, frame's rows", table, idx,
-                                  w, nc, nf)
+        err = compare_gather(qg, "ffjet f64, frame's rows", table, idx, w,
+                             nc, nf)
+        frame_times = dict(time_gather(qg, "ffjet f64, frame's rows", table,
+                                       idx, w, nc, nf), max_abs_err=err)
 
         # 5. the card against the port's CPU path on a small camera
         small = flagship_config(GrtransConfig, dfile, (16, 16, 64))
@@ -565,7 +666,7 @@ def ffjet_phases(dev, qg):
               f"(bar {CPU_GPU_RTOL})")
         if not rel <= CPU_GPU_RTOL:
             raise AssertionError(f"card vs CPU rel L1 {rel}")
-    return launches, frame_times
+    return counts, frame_times
 
 
 def counted_run(qg, dev, name, kw, model=None):
@@ -605,12 +706,13 @@ def counted_run(qg, dev, name, kw, model=None):
 
 
 def riaf_phases(dev, qg):
-    """Phases 6 and 7.  Returns the launches of the counted run."""
+    """Phases 6 and 7.  Returns the counts of the counted run."""
     from grtrans_tpu_torch.api import Grtrans
 
     # 6. the RIAF through the API, counted
     kw = riaf_kwargs(NN, "lsoda")
     x, launches = counted_run(qg, dev, "RIAF lsoda", kw)
+    counts = counted_run.counts
     if launches < kw["nfreq"]:
         raise AssertionError(f"RIAF path launched quad_gather {launches} "
                              f"times for {kw['nfreq']} frequencies")
@@ -646,11 +748,11 @@ def riaf_phases(dev, qg):
                 raise AssertionError(
                     f"RIAF {iname} uout={uout:g}: card vs CPU rel L1 {rel}, "
                     f"Stokes I {rel_i}")
-    return launches
+    return counts
 
 
 def hotspot_phase(dev, qg):
-    """Phase 8.  Returns the launches of the counted run."""
+    """Phase 8.  Returns the counts of the counted run."""
     kw = hotspot_kwargs(NN, HOTSPOT_FRAMES)
     x, launches = counted_run(qg, dev, "hotspot", kw)
     if x.ivals.shape != (NN[0] * NN[1], 4, HOTSPOT_FRAMES):
@@ -666,14 +768,15 @@ def hotspot_phase(dev, qg):
     if not (lc.min() > 0 and mod > 0.1):
         raise AssertionError(f"hotspot light curve {lc}: no orbital "
                              "modulation")
-    return launches
+    return counted_run.counts
 
 
 def disk_phase(dev, qg):
-    """Phase 9.  Returns the launches of the two counted runs."""
+    """Phase 9.  Returns the counts of the two counted runs."""
     npix = DISK_NN[0] * DISK_NN[1]
-    x, thin_launches = counted_run(qg, dev, "thin disk",
-                                   disk_kwargs(DISK_NN, **THINDISK))
+    x, _ = counted_run(qg, dev, "thin disk",
+                       disk_kwargs(DISK_NN, **THINDISK))
+    thin_counts = counted_run.counts
     if x.ivals.shape != (npix, 4, THINDISK["nfreq"]):
         raise AssertionError(f"bad thin-disk image {x.ivals.shape}")
     I = x.ivals[:, 0]
@@ -689,8 +792,8 @@ def disk_phase(dev, qg):
 
     x, phat_launches = counted_run(qg, dev, "phatdisk",
                                    disk_kwargs(DISK_NN, **PHATDISK))
-    disk_phase.wide_launches = counted_run.counts["wide"]
-    if disk_phase.wide_launches < 1:
+    phat_counts = counted_run.counts
+    if phat_counts["wide"] < 1:
         raise AssertionError("PHATDISK path never launched the wide-row "
                              "kernel")
     if x.ivals.shape != (npix, 1, PHATDISK["nfreq"]):
@@ -701,7 +804,7 @@ def disk_phase(dev, qg):
     if not ((I >= 0).all() and (I.max(0) > 0).all()):
         raise AssertionError(f"PHATDISK I max {I.max(0)}")
     print(f"phatdisk: I max {I.max(0)}, spectrum {x.spec[0]}")
-    return thin_launches, phat_launches
+    return thin_counts, phat_counts
 
 
 def card_vs_cpu_phase():
@@ -741,7 +844,7 @@ def card_vs_cpu_phase():
 
 def snapshot_phases(dev, qg):
     """Phases 12 and 13.  Returns (counts of the fast-light frame, counts
-    of the slow-light frame, times of quad_gather_rows on the frame's own
+    of the slow-light frame, times of quad_gather_rows on each frame's own
     index stream)."""
     from grtrans_tpu_torch import constants as pc
     from grtrans_tpu_torch import driver
@@ -770,9 +873,10 @@ def snapshot_phases(dev, qg):
     npix = NN[0] * NN[1]
     x, _ = counted_run(qg, dev, "HARM3D snapshot", kw, model=model)
     fast_counts = counted_run.counts
-    if fast_counts["quad_gather_rows"] != 1:
+    if fast_counts["quad_gather_rows"] != 1 or fast_counts["rows_tiled"] != 1:
         raise AssertionError(f"HARM3D frame launches {fast_counts}: expected "
-                             "one quad_gather_rows launch")
+                             "one quad_gather_rows launch, on the tiled "
+                             "kernel")
     I = x.ivals[:, 0, 0]
     if x.ivals.shape != (npix, 4, 1) or not (I >= 0).all() or I.max() <= 0:
         raise AssertionError(f"bad HARM3D image {x.ivals.shape}, I min "
@@ -858,12 +962,24 @@ def snapshot_phases(dev, qg):
     slow, _ = counted_run(qg, dev, "HARM3D slow light, 3 slices", slow_kw,
                           model=model)
     slow_counts = counted_run.counts
-    if slow_counts["quad_gather_rows"] != 1:
-        raise AssertionError(f"slow-light frame launches {slow_counts}")
+    if slow_counts["quad_gather_rows"] != 1 or slow_counts["rows_tiled"] != 1:
+        raise AssertionError(f"slow-light frame launches {slow_counts}: "
+                             "expected one launch of the tiled kernel")
     table, _ = model._stacked_fields()
     print(f"slow-light table {tuple(table.shape)}, "
           f"{table.numel() * 8 / 1e6:.0f} MB")
     del table
+    # the slow-light frame's own index stream (R = 8)
+    frame_args = []
+    grmhd3d.quad_gather_rows = keep
+    try:
+        Grtrans(**slow_kw).run(model=model)
+    finally:
+        grmhd3d.quad_gather_rows = wrapper
+    tbl, idx, w, nc, nf = frame_args[0]
+    slow_times = check_rows(qg, "three slices R=8 f64, slow-light frame's "
+                            "rows", tbl, idx, w, nc, nf)
+    del frame_args, tbl, idx, w
     # the direction of the lag, on a camera whose rays all turn well inside
     # the trace's start: camera_delay (here as in grtrans_tpu) is off by the
     # camera's distance for the few corner rays of the 30 M camera that
@@ -884,7 +1000,7 @@ def snapshot_phases(dev, qg):
             and fluxes[0] * 1.01 < fluxes[1] < fluxes[2] * 0.99):
         raise AssertionError(f"slow light does not lag the growing source: "
                              f"{fluxes}")
-    return fast_counts, slow_counts, frame_times
+    return fast_counts, slow_counts, frame_times, slow_times
 
 
 def snapshot_card_vs_cpu_phase():
@@ -918,6 +1034,65 @@ def snapshot_card_vs_cpu_phase():
               f"{CPU_GPU_RTOL}); I max {cpu[:, 0].max():.3e}")
         if not (rel <= CPU_GPU_RTOL and cpu[:, 0].max() > 0):
             raise AssertionError(f"{name}: card vs CPU rel L1 {rel}")
+
+
+def harm2d_phase(dev, qg):
+    """Phase 15: a HARM 2-D snapshot frame at full width.  Returns (counts
+    of the counted frame, times of quad_gather on its index stream)."""
+    from grtrans_tpu_torch import constants as pc
+    from grtrans_tpu_torch.api import Grtrans
+    from grtrans_tpu_torch.fluid import harm
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.testing import grmhd_dump
+
+    t0 = time.perf_counter()
+    dump = grmhd_dump.harm_dump(*HARM2D_NX, seed=SEED)
+    t1 = time.perf_counter()
+    model = load_fluid_model("HARM", device=dev, dump=dump)
+    torch.cuda.synchronize()
+    print(f"HARM 2-D snapshot {HARM2D_NX}: synthetic dump {t1 - t0:.1f} s "
+          f"on the host, load + pack {time.perf_counter() - t1:.1f} s; table "
+          f"{tuple(model.fquad.shape)} {model.fquad.dtype}, "
+          f"{model.fquad.numel() * 8 / 1e6:.1f} MB")
+    del dump
+    kw = snapshot_kwargs("HARM", NN)
+    x, _ = counted_run(qg, dev, "HARM 2-D snapshot", kw, model=model)
+    counts = counted_run.counts
+    if counts["tiled"] < 1:
+        raise AssertionError(f"HARM 2-D frame launches {counts}: the tiled "
+                             "quad_gather kernel never ran")
+    I = x.ivals[:, 0, 0]
+    if x.ivals.shape != (NN[0] * NN[1], 4, 1) or not (I >= 0).all() \
+            or I.max() <= 0:
+        raise AssertionError(f"bad HARM 2-D image {x.ivals.shape}, I min "
+                             f"{I.min()}")
+    jy = x.spec[0, 0] * pc.lbh(kw["mbh"]) ** 2 / SGRA_DISTANCE_CM ** 2 * 1e23
+    print(f"HARM 2-D: I max {I.max():.6e}, total flux {x.spec[0, 0]:.6e} cgs "
+          f"= {jy:.4f} Jy at Sgr A* (mdot {SNAPSHOT_MDOT:g} g/s), LP {x.lp}")
+    # the frame's own index stream
+    frame_args = []
+    wrapper = harm.bilinear_packed
+
+    def keep(table, n2, nf, *cells):
+        frame_args.append((table, *qg.bilinear_operands(n2, *cells), 4, nf))
+        return wrapper(table, n2, nf, *cells)
+
+    harm.bilinear_packed = keep
+    try:
+        Grtrans(**kw).run(model=model)
+    finally:
+        harm.bilinear_packed = wrapper
+    table, idx, w, nc, nf = frame_args[0]
+    print(f"HARM 2-D frame index stream: {idx.numel()} queries, "
+          f"{idx.unique().numel()} distinct rows of {table.shape[0]}")
+    err = compare_gather(qg, "harm 2-D 288x128 f64, frame's rows", table,
+                         idx, w, nc, nf)
+    return counts, dict(time_gather(qg, "harm 2-D 288x128 f64, frame's rows",
+                                    table, idx, w, nc, nf), max_abs_err=err)
+
+
+def by_path(paths, key):
+    return {name: c[key] for name, c in paths.items()}
 
 
 def run(dev):
@@ -954,62 +1129,77 @@ def run(dev):
     err, times = check_kernel(qg, "phatdisk f64", 500, 2, 101, torch.float64,
                               dev, n=DISK_NN[0] * DISK_NN[1])
     shapes["phatdisk f64"] = dict(times, max_abs_err=err)
+    # the 2-D tables of the tiled kernel's other shapes: HARM on a 32 x 24
+    # and on the EHT library's 288 x 128 r-theta grid, KORAL on the latter,
+    # SPHACC's default 600 radii, a 100 x 50 NUMDISK table, the (p, x)
+    # table of the per-sample-p POLSYNCHPL lookup
+    for name, ns, nc, nf in (
+            ("harm 2-D f64", 32 * 24, 4, 10),
+            ("harm 2-D 288x128 f64", HARM2D_NX[0] * HARM2D_NX[1], 4, 10),
+            ("koral 2-D 288x128 f64", HARM2D_NX[0] * HARM2D_NX[1], 4, 11),
+            ("sphacc f64", 600, 2, 2),
+            ("numdisk f64", 5000, 4, 1),
+            ("polsynchpl per-sample p f64", 131 * 201, 4, 6)):
+        before = qg.quad_gather.launches_by_kernel["tiled"]
+        err, times = check_kernel(qg, name, ns, nc, nf, torch.float64, dev)
+        if qg.quad_gather.launches_by_kernel["tiled"] <= before:
+            raise AssertionError(f"{name}: the wrapper did not pick the "
+                                 "tiled kernel")
+        shapes[name] = dict(times, max_abs_err=err)
     check_error_flag(qg, dev)
 
-    ffjet_launches, frame_times = ffjet_phases(dev, qg)
+    ffjet_counts, frame_times = ffjet_phases(dev, qg)
     shapes["ffjet f64, frame's rows"] = frame_times
-    riaf_launches = riaf_phases(dev, qg)
-    hotspot_launches = hotspot_phase(dev, qg)
-    thin_launches, phat_launches = disk_phase(dev, qg)
+    paths = {"ffjet_flagship": ffjet_counts,
+             "riaf_hybrid_lsoda": riaf_phases(dev, qg),
+             "hotspot_light_curve": hotspot_phase(dev, qg)}
+    paths["thindisk_bbpol"], paths["phatdisk_interp"] = disk_phase(dev, qg)
     card_vs_cpu_phase()
     shapes.update(rows_phase(dev, qg))
-    fast_counts, slow_counts, frame_times = snapshot_phases(dev, qg)
+    (paths["harm3d_snapshot"], paths["harm3d_slow_light"], frame_times,
+     slow_times) = snapshot_phases(dev, qg)
     shapes["snapshot R=4 f64, frame's rows"] = frame_times
+    shapes["three slices R=8 f64, slow-light frame's rows"] = slow_times
     snapshot_card_vs_cpu_phase()
+    paths["harm2d_snapshot"], shapes["harm 2-D 288x128 f64, frame's rows"] \
+        = harm2d_phase(dev, qg)
 
     main = shapes["ffjet f64"]
     wide = shapes["phatdisk f64"]
     rows = shapes["snapshot R=4 f64"]
     source = "grtrans_tpu_torch/csrc/quad_gather.cu"
+    gather_by_kernel = {k: sum(by_path(paths, k).values())
+                        for k in ("tiled", "wide", "generic")}
+    rows_by_kernel = {k: sum(by_path(paths, "rows_" + k).values())
+                      for k in ("tiled", "simple")}
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "quad_gather", "route": "cuda",
-        "source": "grtrans_tpu_torch/csrc/quad_gather.cu",
+        "name": "quad_gather", "route": "cuda", "source": source,
         "replaces": "grtrans_tpu/ops/pallas_gather.py:49",
-        "launches": (ffjet_launches + riaf_launches + hotspot_launches
-                     + thin_launches + phat_launches
-                     + fast_counts["quad_gather"]
-                     + slow_counts["quad_gather"]),
-        "launches_by_path": {"ffjet_flagship": ffjet_launches,
-                             "riaf_hybrid_lsoda": riaf_launches,
-                             "hotspot_light_curve": hotspot_launches,
-                             "thindisk_bbpol": thin_launches,
-                             "phatdisk_interp": phat_launches,
-                             "harm3d_snapshot": fast_counts["quad_gather"],
-                             "harm3d_slow_light":
-                                 slow_counts["quad_gather"]},
+        "launches": sum(by_path(paths, "quad_gather").values()),
+        "launches_by_path": by_path(paths, "quad_gather"),
+        "launches_by_kernel": gather_by_kernel,
         "max_abs_err": main["max_abs_err"], "ms": main["kernel"],
         "plain_ms": main["plain"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library"],
         "generic_ms": main["generic"], "shapes": shapes}, {
         "name": "quad_gather_wide", "route": "cuda", "source": source,
         "replaces": "grtrans_tpu/ops/pallas_gather.py:49",
-        "launches": disk_phase.wide_launches,
-        "launches_by_path": {"phatdisk_interp": disk_phase.wide_launches},
+        "launches": gather_by_kernel["wide"],
+        "launches_by_path": by_path(paths, "wide"),
         "max_abs_err": wide["max_abs_err"], "ms": wide["kernel"],
         "plain_ms": wide["plain"], "bound_ms": wide["bound_ms"],
         "bound_by": wide["bound_by"], "library_ms": wide["library"],
         "generic_ms": wide["generic"]}, {
         "name": "quad_gather_rows", "route": "cuda", "source": source,
         "replaces": "grtrans_tpu/fluid/grmhd3d.py:212",
-        "launches": (fast_counts["quad_gather_rows"]
-                     + slow_counts["quad_gather_rows"]),
-        "launches_by_path": {
-            "harm3d_snapshot": fast_counts["quad_gather_rows"],
-            "harm3d_slow_light": slow_counts["quad_gather_rows"]},
+        "launches": sum(by_path(paths, "quad_gather_rows").values()),
+        "launches_by_path": by_path(paths, "quad_gather_rows"),
+        "launches_by_kernel": rows_by_kernel,
         "max_abs_err": rows["max_abs_err"], "ms": rows["kernel"],
         "plain_ms": rows["plain"], "bound_ms": rows["bound_ms"],
-        "bound_by": rows["bound_by"], "library_ms": rows["library"]}]}))
+        "bound_by": rows["bound_by"], "library_ms": rows["library"],
+        "simple_ms": rows["simple"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

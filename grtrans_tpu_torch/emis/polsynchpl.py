@@ -6,7 +6,9 @@ scipy on a dense (log x, p) grid (the same numpy/scipy code as
 grtrans_tpu/emis/polsynchpl.py, so the tables are identical), blended in
 p on the host and looked up per sample by the quad_gather kernel: one
 row of (6 tables x 2 bracketing x nodes) per sample, combined with the
-linear log-x weights."""
+linear log-x weights.  A per-sample index p (a tensor) takes one bilinear
+(p, log x) lookup of the six tables stacked and corner-packed (4 x 6 a
+row), also through quad_gather."""
 
 import math
 from functools import lru_cache
@@ -16,7 +18,10 @@ import torch
 
 from grtrans_tpu_torch import constants as pc
 from grtrans_tpu_torch.ops.intcast import trunc_clip
-from grtrans_tpu_torch.ops.quad_gather import pair_rows, quad_gather
+from grtrans_tpu_torch.ops.interp import get_weight
+from grtrans_tpu_torch.ops.quad_gather import (bilinear_packed,
+                                               pack_corners_2d, pair_rows,
+                                               quad_gather)
 
 NX = 201           # log-x table resolution (20 per decade)
 NP = 131           # p step 0.05: 3.0, 3.5 and 7.0 are exact nodes
@@ -95,15 +100,40 @@ def _g_all(x, p):
     return torch.exp(v).reshape(lx.shape + (6,))
 
 
+@lru_cache(maxsize=4)
+def _pg_packed(dtype, device):
+    """The six (p, x) tables stacked (NP, NX, 6) and corner-packed for a
+    bilinear lookup, (NP * NX, 4 x 6), placed on `device`."""
+    _, _, tables = _build_tables()
+    packed = pack_corners_2d(np.stack([tables[n] for n in _G_ORDER], axis=-1))
+    return torch.as_tensor(packed, dtype=dtype, device=device)
+
+
+def _g_all_p(x, p):
+    """All six cutoff factors at x for a per-sample index p (a tensor that
+    broadcasts with x): (..., 6).  The (p, log x) cell of each sample is
+    found by search, as grtrans_tpu's _g does, and its four corners of all
+    six tables are one quad_gather row."""
+    logxs, ps, _ = _build_tables()
+    lx = torch.log(x.clamp(X_LO, X_HI))
+    pp = p.to(lx.dtype).clamp(P_LO, P_HI)
+    lx, pp = torch.broadcast_tensors(lx, pp)
+    ix, wx = get_weight(torch.as_tensor(logxs, dtype=lx.dtype,
+                                        device=lx.device), lx)
+    ip, wp = get_weight(torch.as_tensor(ps, dtype=lx.dtype,
+                                        device=lx.device), pp)
+    return torch.exp(bilinear_packed(_pg_packed(lx.dtype, lx.device), NX,
+                                     len(_G_ORDER), ip, ix, wp, wx))
+
+
 def polsynchpl(nu, n, b, theta, p, gmin, gmax):
     """Polarized power-law synchrotron coefficients with finite-cutoff
     corrections (polsynchemis.f90:527-631).
 
     nu [Hz], n = nonthermal density [cm^-3], b [G], theta = pitch angle
-    (tensors); p = index (a number); gmin (number or tensor), gmax.
-    Returns (..., 11) in the standard [j(4), a(4), rho(3)] layout."""
-    if torch.is_tensor(p):
-        raise NotImplementedError("per-sample power-law index p")
+    (tensors); p = index (a number, or a tensor of per-sample indices);
+    gmin (number or tensor), gmax.  Returns (..., 11) in the standard
+    [j(4), a(4), rho(3)] layout."""
     thsafe = 1e-10
     tanth = torch.tan(theta) + torch.sign(torch.cos(theta)) * thsafe
     sinth = torch.sin(theta) + thsafe
@@ -117,7 +147,8 @@ def polsynchpl(nu, n, b, theta, p, gmin, gmax):
     A = (p - 1.0) * n / (gmin ** (1.0 - p) - gmax ** (1.0 - p))
 
     # tables are int_x^inf and xmax < xmin, so G(xmax) - G(xmin) > 0
-    gall = _g_all(xmax, p) - _g_all(xmin, p)
+    g_all = _g_all_p if torch.is_tensor(p) else _g_all
+    gall = g_all(xmax, p) - g_all(xmin, p)
     gxfac, gpfac, gvfac, gafac, gapfac, gavfac = gall.unbind(-1)
 
     jfac = A * pc.e ** 2 / pc.c * math.sqrt(3.0) / 4.0 \

@@ -13,18 +13,28 @@ takes CPU tensors to its plain PyTorch version (`quad_gather_ref`,
 `quad_gather_rows_ref`) and CUDA tensors to the hand-written kernels in
 csrc/quad_gather.cu; there is no fallback between the two.
 
-quad_gather has three kernels: a tiled one for the renderer's two narrow
-shapes, (nc, nf) = (4, 9) and (2, 6), which needs 16-byte aligned
-operands; a wide-row one (a warp a query) for nf >= 32; and a generic one
-(one thread per output element) for everything else.  The wrapper picks
-by shape and alignment; `generic=True` forces the generic kernel so that
-it can be timed against the others.
+quad_gather has three kernels: a tiled one for the narrow shapes in use,
+`TILED_SHAPES` (FFJET 4x9, the POLSYNCHPL cutoff table 2x6 and its
+per-sample-p form 4x6, HARM 4x10, KORAL 4x11, SPHACC 2x2, NUMDISK 4x1),
+which needs 16-byte aligned operands; a wide-row one (a warp a query) for
+nf >= 32 (PHATDISK's 2x101); and a generic one (one thread per output
+element) for everything else.  `gather_kernel` picks by shape and
+alignment; `generic=True` forces the generic kernel so that it can be timed
+against the others.
+
+quad_gather_rows has two: a tiled one (persistent blocks, the rows of a
+tile copied to shared memory by Hopper bulk copies, two tiles in flight,
+lanes of a warp that name one row sharing its copy) for the (R, nc) of
+`ROWS_TILED_SHAPES` with rows that are whole 16-byte pieces of a 16-byte
+aligned table, and the simple one (sixteen lanes a query) for anything
+else.  `rows_kernel` picks; `simple=True` forces the simple kernel and
+`dedup=False` the tiled kernel without the warp's sharing of copies, so
+that they can be timed; the port runs the default, `dedup=True`.
 
 The library is compiled with nvcc on first use into
 grtrans_tpu_torch/_build/, keyed by a hash of its source, and bound with
 ctypes.  `quad_gather.launches` and `quad_gather_rows.launches` count
-kernel launches; `quad_gather.launches_by_kernel` splits the first by
-kernel.
+kernel launches; `launches_by_kernel` of each splits them by kernel.
 """
 
 import collections
@@ -71,14 +81,19 @@ def pack_corners_2d(fields):
     return np.stack([A, A1, B0, B1], axis=2).reshape(n1 * n2, 4 * nf)
 
 
+def bilinear_operands(n2, i1, i2, w1, w2):
+    """The quad_gather index and weights of a bilinear sample of a
+    pack_corners_2d table at cells (i1, i2), fractional weights (w1, w2)."""
+    w = torch.stack([(1 - w1) * (1 - w2), w1 * (1 - w2),
+                     (1 - w1) * w2, w1 * w2], dim=-1).reshape(-1, 4)
+    return (i1 * n2 + i2).reshape(-1), w.contiguous()
+
+
 def bilinear_packed(table, n2, nf, i1, i2, w1, w2):
     """Bilinear sample of a pack_corners_2d table at cells (i1, i2) with
     fractional weights (w1, w2) along the two axes, through quad_gather.
     Returns i1.shape + (nf,)."""
-    w = torch.stack([(1 - w1) * (1 - w2), w1 * (1 - w2),
-                     (1 - w1) * w2, w1 * w2], dim=-1).reshape(-1, 4)
-    out = quad_gather(table, (i1 * n2 + i2).reshape(-1), w.contiguous(), 4,
-                      nf)
+    out = quad_gather(table, *bilinear_operands(n2, i1, i2, w1, w2), 4, nf)
     return out.reshape(i1.shape + (nf,))
 
 
@@ -116,9 +131,21 @@ def quad_gather(table, idx, w, nc, nf, generic=False):
 quad_gather.launches = 0
 quad_gather.launches_by_kernel = collections.Counter()
 
-TILED_SHAPES = ((4, 9), (2, 6))
+TILED_SHAPES = ((4, 9), (2, 6), (4, 6), (4, 10), (4, 11), (2, 2), (4, 1))
 WIDE_MIN_NF = 32
 _KERNELS = ("tiled", "generic", "wide")
+
+
+def gather_kernel(nc, nf, aligned, generic=False):
+    """The quad_gather kernel for a (nc, nf) table: "tiled", "wide" or
+    "generic".  `aligned`: table, weights and output start on 16 bytes."""
+    if generic:
+        return "generic"
+    if (nc, nf) in TILED_SHAPES and aligned:
+        return "tiled"
+    if nf >= WIDE_MIN_NF and nc <= 32:
+        return "wide"
+    return "generic"
 
 
 def quad_gather_rows_ref(table, idx, w, nc, nf):
@@ -129,9 +156,11 @@ def quad_gather_rows_ref(table, idx, w, nc, nf):
     return (rows * w[..., None]).sum((1, 2))
 
 
-def quad_gather_rows(table, idx, w, nc, nf):
+def quad_gather_rows(table, idx, w, nc, nf, simple=False, dedup=True):
     """table (NS, nc*nf) float32/float64; idx (N, R) int32; w (N, R, nc) of
-    the table's dtype; all contiguous on one device.  Returns (N, nf)."""
+    the table's dtype; all contiguous on one device.  Returns (N, nf).
+    `simple` and `dedup` (lanes of a warp that name one row share its
+    copy) only choose among the CUDA kernels."""
     if table.dim() != 2 or table.shape[1] != nc * nf:
         raise ValueError(f"table must be (NS, {nc * nf}), got "
                          f"{tuple(table.shape)}")
@@ -155,20 +184,44 @@ def quad_gather_rows(table, idx, w, nc, nf):
     n, r = idx.shape
     out = torch.empty((n, nf), dtype=table.dtype, device=table.device)
     err = error_flag(table.device)
+    kernel = rows_kernel(r, nc, nf, table.element_size(),
+                         table.data_ptr() % 16 == 0, simple)
     fn = (lib.quad_gather_rows_f64 if table.dtype == torch.float64
           else lib.quad_gather_rows_f32)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
                 out.data_ptr(), err.data_ptr(), n, table.shape[0], r, nc, nf,
-                stream)
+                _ROWS_KERNELS.index(kernel), int(dedup), stream)
     if rc != 0:
         raise RuntimeError(f"quad_gather_rows launch failed: CUDA error {rc}")
     quad_gather_rows.launches += 1
+    quad_gather_rows.launches_by_kernel[kernel] += 1
     return out
 
 
 quad_gather_rows.launches = 0
+quad_gather_rows.launches_by_kernel = collections.Counter()
+
+# (R, nc): the snapshot's trilinear cell, slow light, HARMPI.  The binned
+# populations (R = 8 or 4 of nc = 1) take the simple kernel: their ~1e5
+# queries leave the persistent blocks too few tiles to pipeline, and the
+# tiled kernel measured no faster there (PERF.md)
+ROWS_TILED_SHAPES = ((4, 2), (8, 2), (1, 1))
+ROWS_MAX_ROW_BYTES = 256    # two tiles of rows in shared memory
+_ROWS_KERNELS = ("tiled", "simple")
+
+
+def rows_kernel(r, nc, nf, itemsize, table_aligned, simple=False):
+    """The quad_gather_rows kernel for R rows of a (nc, nf) table of
+    `itemsize`-byte elements: "tiled" where each row is a whole number of
+    16-byte pieces (the bulk copy's unit) of a 16-byte aligned table,
+    "simple" otherwise."""
+    rowbytes = nc * nf * itemsize
+    if simple or (r, nc) not in ROWS_TILED_SHAPES or not table_aligned \
+            or rowbytes % 16 or rowbytes > ROWS_MAX_ROW_BYTES:
+        return "simple"
+    return "tiled"
 
 
 def error_flag(device):
@@ -190,14 +243,8 @@ def _launch(table, idx, w, nc, nf, generic):
     err = error_flag(table.device)
     # the tiled kernel moves 16-byte pieces; the others take any alignment
     aligned = all(t.data_ptr() % 16 == 0 for t in (table, w, out))
-    if generic:
-        variant = 1
-    elif (nc, nf) in TILED_SHAPES and aligned:
-        variant = 0
-    elif nf >= WIDE_MIN_NF and nc <= 32:
-        variant = 2
-    else:
-        variant = 1
+    kernel = gather_kernel(nc, nf, aligned, generic)
+    variant = _KERNELS.index(kernel)
     fn = (lib.quad_gather_f64 if table.dtype == torch.float64
           else lib.quad_gather_f32)
     with torch.cuda.device(table.device):
@@ -208,7 +255,7 @@ def _launch(table, idx, w, nc, nf, generic):
     if rc != 0:
         raise RuntimeError(f"quad_gather launch failed: CUDA error {rc}")
     quad_gather.launches += 1
-    quad_gather.launches_by_kernel[_KERNELS[variant]] += 1
+    quad_gather.launches_by_kernel[kernel] += 1
     return out
 
 
@@ -267,7 +314,7 @@ def load_library():
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ptr]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

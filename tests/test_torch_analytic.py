@@ -27,6 +27,8 @@ from grtrans_tpu_torch.fluid.base import SourceParams
 from grtrans_tpu_torch.geometry import fourvector as tfv
 from grtrans_tpu_torch.geometry import kerr as tkerr
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 A = 0.9
 NPIX, NPTS = 16, 48
 

@@ -28,11 +28,14 @@ roundoff may differ (bar 1e-12 of max|I|)."""
 
 import numpy as np
 import pytest
+import torch
 
 from grtrans_tpu.api import Grtrans as JGrtrans
 from grtrans_tpu.io.binio import read_camera_bin as jread_camera_bin
 from grtrans_tpu_torch.api import Grtrans
 from grtrans_tpu_torch.io.binio import read_camera_bin
+
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
 
 COMMON = dict(spin=0.9, standard=1, nn=(8, 8, 32), mbh=4e6, mumin=0.5,
               mumax=0.5, nfreq=2, fmin=1e11, fmax=1e12,

@@ -41,10 +41,13 @@ from grtrans_tpu_torch.emis import polsynchpl as tpl
 from grtrans_tpu_torch.fluid.base import EmisInputs, SourceParams
 from grtrans_tpu_torch.ops import bessel as tbes
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 NPIX, NPTS = 24, 40
 # measured: see the module docstring and PERF.md
 COEF_TOL = {"polsynchth": 1e-12, "sympolemisth": 1e-12, "synchemis": 1e-12,
-            "synchemisnoabs": 1e-12, "synchpl": 2e-9, "HYBRIDTHPL": 2e-9}
+            "synchemisnoabs": 1e-12, "synchpl": 2e-9, "HYBRIDTHPL": 2e-9,
+            "polsynchpl_p": 2e-9}
 
 
 def _bessel_x():
@@ -153,6 +156,37 @@ def test_synchpl_matches_jax():
                        *args)
     _close("synchpl", ours, jpl.synchpl(nu, nnth, b, theta, *args))
     assert (ours[..., [1, 2, 3, 5, 6, 7, 8, 9, 10]] == 0).all()
+
+
+def test_polsynchpl_per_sample_p_matches_jax():
+    """An index p per sample: the six cutoff integrals G(x; p) of one
+    bilinear (p, log x) lookup (1e-12 relative against grtrans_tpu's _g,
+    over x past both ends of the table and p past both ends and on its
+    nodes) and the POLSYNCHPL coefficients that carry them, at gamma_min =
+    10 (measured 6.1e-13).  At gamma_min = 100 and p near 8, G(x_max) -
+    G(x_min) cancels to 1e-9 of G, which turns last-bit differences of the
+    lookup into 6e-4 in both directions: the bar holds where the formula is
+    conditioned."""
+    rng = np.random.default_rng(4)
+    shape = (NPIX, NPTS)
+    p = rng.uniform(1.6, 7.9, shape)
+    p.flat[:6] = [1.2, 1.5, 3.0, 3.5, 7.0, 8.5]
+    x = 10.0 ** rng.uniform(-9.0, 4.0, shape)
+    ours = tpl._g_all_p(torch.from_numpy(x), torch.from_numpy(p)).numpy()
+    assert ours.shape == shape + (6,)
+    for i, name in enumerate(tpl._G_ORDER):
+        ref = np.asarray(jpl._g(name, jnp.asarray(x), jnp.asarray(p)))
+        np.testing.assert_allclose(ours[..., i], ref, rtol=1e-12, atol=0.0,
+                                   err_msg=name)
+    _, b, _, theta, nu, nnth = _samples(5)
+    t = [torch.from_numpy(v) for v in (nu, nnth, b, theta)]
+    ours = tpl.polsynchpl(*t, torch.from_numpy(p), 10.0, 1e5)
+    _close("polsynchpl_p", ours,
+           jpl.polsynchpl(nu, nnth, b, theta, jnp.asarray(p), 10.0, 1e5))
+    # a uniform p tensor agrees with the scalar path
+    same = tpl.polsynchpl(*t, torch.full(shape, 3.5, dtype=torch.float64),
+                          10.0, 1e5)
+    _close("polsynchpl_p", same, tpl.polsynchpl(*t, 3.5, 10.0, 1e5))
 
 
 @pytest.mark.parametrize("ename", ["HYBRIDTHPL", "POLSYNCHTH", "SYMPOLTH",

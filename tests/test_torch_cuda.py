@@ -75,7 +75,7 @@ def test_quad_gather_takes_unaligned_operands(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nc,nf", [(2, 2), (4, 9), (2, 6)],
+@pytest.mark.parametrize("nc,nf", [(3, 5), (4, 9), (2, 6)],
                          ids=["generic", "ffjet", "polsynchpl"])
 def test_quad_gather_flags_out_of_range_rows(dev, nc, nf):
     table = torch.zeros((16, nc * nf), dtype=torch.float64, device=dev)
@@ -188,8 +188,9 @@ def test_wide_row_kernel_matches_plain(dev, dtype, nc, nf):
                          ids=["trilinear", "slowlight", "bins3d", "bins2d",
                               "nearest", "runtime"])
 def test_quad_gather_rows_kernel_matches_plain(dev, dtype, r, nc, nf, n):
-    """Every instantiation of quad_gather_rows and its run-time (R, nc)
-    form, at query counts ragged against the 16 queries of a block."""
+    """Every instantiation of the simple quad_gather_rows kernel and its
+    run-time (R, nc) form, at query counts ragged against the 16 queries of
+    a block (the tiled kernel: test_quad_gather_rows_tiled_kernel_*)."""
     rng = np.random.default_rng(5)
     ns = 5000
     table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
@@ -199,10 +200,12 @@ def test_quad_gather_rows_kernel_matches_plain(dev, dtype, r, nc, nf, n):
     w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, r, nc)), dtype=dtype,
                         device=dev)
     before = qg.quad_gather_rows.launches
-    out = qg.quad_gather_rows(table, idx, w, nc, nf)
+    simple = qg.quad_gather_rows.launches_by_kernel["simple"]
+    out = qg.quad_gather_rows(table, idx, w, nc, nf, simple=True)
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
     assert qg.quad_gather_rows.launches == before + 1
+    assert qg.quad_gather_rows.launches_by_kernel["simple"] == simple + 1
     assert qg.error_flag(dev).item() == 0
     assert out.shape == (n, nf) and out.dtype == dtype
     assert (out - ref).abs().max().item() <= TOL[dtype] * \
@@ -220,7 +223,7 @@ def test_quad_gather_rows_flags_out_of_range_rows(dev, r, nc):
     w = torch.ones((4, r, nc), dtype=torch.float64, device=dev)
     flag = qg.error_flag(dev)
     try:
-        out = qg.quad_gather_rows(table, idx, w, nc, nf)
+        out = qg.quad_gather_rows(table, idx, w, nc, nf, simple=True)
         torch.cuda.synchronize()
         assert flag.item() == 1
         assert torch.isnan(out[1:3]).all()
@@ -244,3 +247,174 @@ def test_quad_gather_rows_offsets_past_int32(dev):
     torch.cuda.synchronize()
     assert qg.error_flag(dev).item() == 0
     assert (out == 2.0 * (1 + 2 + 3 + 4)).all()
+
+
+def _rows_inputs(dev, dtype, n, r, nc, nf, ns=5000, seed=6):
+    rng = np.random.default_rng(seed)
+    table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, ns, (n, r)), dtype=torch.int32,
+                          device=dev)
+    w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, r, nc)), dtype=dtype,
+                        device=dev)
+    return table, idx, w
+
+
+def _rows_close(out, ref, dtype):
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert (out - ref).abs().max().item() <= ROWS_TOL[dtype] * \
+        ref.abs().max().item()
+
+
+# the corner sums of quad_gather_rows run over 8-16 terms
+ROWS_TOL = {torch.float32: 2e-6, torch.float64: 1e-14}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dedup", [True, False], ids=["warp", "none"])
+@pytest.mark.parametrize("n", [1, 63, 4099, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r,nc,nf", [(4, 2, 10), (8, 2, 10), (1, 1, 12)],
+                         ids=["trilinear", "slowlight", "nearest"])
+def test_quad_gather_rows_tiled_kernel_matches_plain(dev, dtype, r, nc, nf,
+                                                     n, dedup):
+    """Every (R, nc) instantiation of the tiled (bulk-copy) kernel, with and
+    without deduplication, at query counts ragged against its tiles of
+    128 / R queries and against its persistent grid."""
+    table, idx, w = _rows_inputs(dev, dtype, n, r, nc, nf)
+    assert qg.rows_kernel(r, nc, nf, table.element_size(), True) == "tiled"
+    before = qg.quad_gather_rows.launches_by_kernel["tiled"]
+    out = qg.quad_gather_rows(table, idx, w, nc, nf, dedup=dedup)
+    ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
+    torch.cuda.synchronize()
+    assert qg.quad_gather_rows.launches_by_kernel["tiled"] == before + 1
+    assert qg.error_flag(dev).item() == 0
+    _rows_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dedup", [True, False], ids=["warp", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("stream", ["one_row", "ray_runs"])
+def test_quad_gather_rows_tiled_kernel_on_repeated_rows(dev, dtype, stream,
+                                                        dedup):
+    """Every query on one row (the worst case of the deduplication: one
+    distinct row a tile), and runs of neighbouring cells as along a ray."""
+    n, r, nc, nf = 100_003, 4, 2, 10
+    table, idx, w = _rows_inputs(dev, dtype, n, r, nc, nf)
+    if stream == "one_row":
+        idx.fill_(1234)
+    else:
+        base = torch.arange(n, device=dev, dtype=torch.int32) // 13 % 4000
+        idx = (base[:, None] + torch.tensor([0, 1, 64, 65], device=dev,
+                                            dtype=torch.int32)).contiguous()
+    out = qg.quad_gather_rows(table, idx, w, nc, nf, dedup=dedup)
+    ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
+    torch.cuda.synchronize()
+    assert qg.error_flag(dev).item() == 0
+    _rows_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["warp", "none", "simple"])
+def test_quad_gather_rows_tiled_kernel_flags_out_of_range_rows(dev, kernel):
+    """A bad index in one slot of a query: the flag, NaN for that query
+    alone, in the middle of a tile and in a ragged last tile."""
+    r, nc, nf, n = 4, 2, 10, 200
+    table = torch.ones((16, nc * nf), dtype=torch.float64, device=dev)
+    idx = torch.zeros((n, r), dtype=torch.int32, device=dev)
+    idx[1, r - 1] = 16
+    idx[2, 0] = -1
+    idx[n - 1, 1] = 2 ** 31 - 1
+    w = torch.ones((n, r, nc), dtype=torch.float64, device=dev)
+    flag = qg.error_flag(dev)
+    try:
+        out = qg.quad_gather_rows(table, idx, w, nc, nf,
+                                  simple=kernel == "simple",
+                                  dedup=kernel == "warp")
+        torch.cuda.synchronize()
+        assert flag.item() == 1
+        bad = torch.zeros(n, dtype=torch.bool, device=dev)
+        bad[[1, 2, n - 1]] = True
+        assert torch.isnan(out[bad]).all()
+        assert (out[~bad] == r * nc).all()
+    finally:
+        flag.zero_()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["none", "simple"])
+def test_quad_gather_rows_offsets_past_int32_every_kernel(dev, kernel):
+    """As test_quad_gather_rows_offsets_past_int32 (which takes the kernel
+    the wrapper picks) for the others."""
+    nc, nf = 2, 10
+    ns = 2 ** 31 // (nc * nf) + 4096          # 107 M rows x 20 float32, 8.6 GB
+    table = torch.zeros((ns, nc * nf), dtype=torch.float32, device=dev)
+    top = torch.arange(ns - 4, ns, dtype=torch.int32, device=dev)
+    table[top.long()] = torch.arange(4.0, device=dev)[:, None] + 1.0
+    idx = top.view(1, 4).contiguous()
+    w = torch.ones((1, 4, nc), dtype=torch.float32, device=dev)
+    out = qg.quad_gather_rows(table, idx, w, nc, nf,
+                              simple=kernel == "simple", dedup=False)
+    torch.cuda.synchronize()
+    assert qg.error_flag(dev).item() == 0
+    assert (out == 2.0 * (1 + 2 + 3 + 4)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32_2x11", "f32_1x6", "unaligned_f64",
+                                  "bins3d_f64", "bins2d_f64"])
+def test_quad_gather_rows_picks_the_simple_kernel(dev, case):
+    """Rows the bulk copy cannot take (not whole 16-byte pieces: KORAL3D's
+    2 x 11 and the bins' 1 x 6 in float32; a table starting 8 bytes into
+    its storage) and the binned populations (R = 8 or 4 of 1 x 6) go to
+    the simple kernel, and it agrees."""
+    dtype = torch.float32 if case.startswith("f32") else torch.float64
+    r, nc, nf = {"f32_2x11": (4, 2, 11), "f32_1x6": (8, 1, 6),
+                 "unaligned_f64": (4, 2, 10), "bins3d_f64": (8, 1, 6),
+                 "bins2d_f64": (4, 1, 6)}[case]
+    table, idx, w = _rows_inputs(dev, dtype, 4099, r, nc, nf)
+    if case == "unaligned_f64":
+        flat = torch.cat([table.new_zeros(1), table.reshape(-1)])
+        table = flat[1:].view(table.shape)
+        assert table.data_ptr() % 16 == 8 and table.is_contiguous()
+    before = dict(qg.quad_gather_rows.launches_by_kernel)
+    out = qg.quad_gather_rows(table, idx, w, nc, nf)
+    ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
+    torch.cuda.synchronize()
+    after = qg.quad_gather_rows.launches_by_kernel
+    assert after["simple"] == before.get("simple", 0) + 1
+    assert after["tiled"] == before.get("tiled", 0)
+    _rows_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 129, 4_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ns,nc,nf", [(768, 4, 10), (36864, 4, 11),
+                                      (120, 2, 2), (5000, 4, 1),
+                                      (26331, 4, 6)],
+                         ids=["harm", "koral", "sphacc", "numdisk",
+                              "polsynchpl_p"])
+def test_quad_gather_tiled_kernel_at_the_2d_table_shapes(dev, dtype, ns, nc,
+                                                         nf, n):
+    """HARM, KORAL, SPHACC, NUMDISK and the per-sample-p POLSYNCHPL table
+    go to the tiled kernel, and it agrees with the plain version; the
+    generic kernel still takes them when forced."""
+    rng = np.random.default_rng(7)
+    table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, ns, n), dtype=torch.int32,
+                          device=dev)
+    w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, nc)), dtype=dtype,
+                        device=dev)
+    before = qg.quad_gather.launches_by_kernel["tiled"]
+    out = qg.quad_gather(table, idx, w, nc, nf)
+    ref = qg.quad_gather_ref(table, idx, w, nc, nf)
+    torch.cuda.synchronize()
+    assert qg.quad_gather.launches_by_kernel["tiled"] == before + 1
+    assert qg.error_flag(dev).item() == 0
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= TOL[dtype] * scale
+    forced = qg.quad_gather(table, idx, w, nc, nf, generic=True)
+    assert (forced - ref).abs().max().item() <= TOL[dtype] * scale

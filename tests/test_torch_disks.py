@@ -32,6 +32,8 @@ from grtrans_tpu_torch.fluid import disks as tdisks
 from grtrans_tpu_torch.fluid.base import SourceParams, load_fluid_model
 from grtrans_tpu_torch.orchestrator import grtrans_run
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 A = 0.9
 NPIX, NPTS = 32, 6
 PHAT = dict(a=A, mbh=10.0, mdot=0.1, nw=80, nr=150, nfreq_tab=30, fmin=3e16,

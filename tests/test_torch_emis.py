@@ -16,6 +16,8 @@ from grtrans_tpu.emis import polsynchpl as jpl
 from grtrans_tpu_torch.emis import framework as tfw
 from grtrans_tpu_torch.emis import polsynchpl as tpl
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 SHAPE = (40, 30)
 
 

@@ -36,6 +36,8 @@ from grtrans_tpu_torch.emis import framework as tframework
 from grtrans_tpu_torch.emis import mixtures as tmix
 from grtrans_tpu_torch.fluid.base import EmisInputs, SourceParams
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 SHAPE = (24, 40)
 NBIN = 12
 RHO_V = 10

@@ -44,6 +44,8 @@ from grtrans_tpu_torch.geodesics import geokerr as tgeo
 from grtrans_tpu_torch.geodesics.geokerr import GeodesicBundle
 from grtrans_tpu_torch.orchestrator import _source_params
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 RIAF = dict(fname="SARIAF", ename="POLSYNCHTH", nvals=4, spin=0.9,
             standard=1, nn=(8, 8, 48), mbh=4e6, mumin=0.5, mumax=0.5,
             nfreq=2, fmin=2.3e11, fmax=6.9e11, iname="formal", uout=0.0025,

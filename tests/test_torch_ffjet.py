@@ -26,6 +26,8 @@ from grtrans_tpu_torch.fluid import base as tbase
 from grtrans_tpu_torch.fluid.ffjet import load_ffjet_file as tload
 from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 A, MU0 = 0.998, 0.906
 
 

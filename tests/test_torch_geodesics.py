@@ -31,6 +31,8 @@ from grtrans_tpu.geodesics import geokerr as jgeo
 from grtrans_tpu_torch.geodesics import camera as tcam
 from grtrans_tpu_torch.geodesics import geokerr as tgeo
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 A, MU0 = 0.998, 0.906
 GRID = (-40.0, 20.0, -20.0, 40.0)
 N, NPTS = 16, 64

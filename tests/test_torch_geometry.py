@@ -11,6 +11,8 @@ from grtrans_tpu.geometry import tetrad as jtetrad
 from grtrans_tpu_torch.geometry import kerr as tkerr
 from grtrans_tpu_torch.geometry import tetrad as ttetrad
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 A = 0.998
 RTOL = 1e-12
 N = 2000

@@ -50,6 +50,8 @@ from grtrans_tpu_torch.geodesics import geokerr as tgeo
 from grtrans_tpu_torch.ops import quad_gather as qg
 from grtrans_tpu_torch.testing import grmhd_dump as gd
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 A = gd.A
 MU0 = 0.5
 SP = dict(mbh=4.3e6, mdot=3e15, mu=0.25, gmin=10.0)

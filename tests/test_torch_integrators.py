@@ -17,6 +17,8 @@ from grtrans_tpu.integrate import solvers as jsol
 from grtrans_tpu_torch.integrate import solvers as tsol
 from test_torch_solvers import _coefficients
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 RTOL = 1e-12
 METHODS = ("formal", "lsoda", "delo", "quadrature", "lsodasph")
 
@@ -121,20 +123,31 @@ class TestVaryingFaraday:
         QU = np.trapezoid(jqf * np.exp(1j * dphi), sf)
         return QU.real, QU.imag
 
-    def test_composition_order(self):
+    LSODA = dict(atol=2e-5, rtol=3e-5, max_substeps=8)
+
+    @pytest.fixture(scope="class")
+    def jax_lsoda(self):
+        """grtrans_tpu's lsoda run on the problem, shared by both tests: it
+        stops at 8 substeps, so its profile is also grtrans_tpu's
+        formal_solve(substeps=8), bit for bit."""
+        _, _, _, lam, j, K = self._problem()
+        ref, rinfo = jsol.lsoda_solve(lam, j, K, **self.LSODA)
+        assert rinfo["substeps"] == 8
+        return ref, rinfo
+
+    def test_composition_order(self, jax_lsoda):
         s, rv, jq, lam, j, K = self._problem()
         Qx, Ux = self._truth(s, rv, jq)
         ours = tsol.formal_solve(*_t(lam, j, K), substeps=8)
-        _close(ours, jsol.formal_solve(lam, j, K, substeps=8))
+        _close(ours, jax_lsoda[0])
         I = ours[0, 0].numpy()
         assert max(abs(I[1] - Qx), abs(I[2] - Ux)) < 1e-4
 
-    def test_lsoda_solve_error_control(self):
+    def test_lsoda_solve_error_control(self, jax_lsoda):
         s, rv, jq, lam, j, K = self._problem()
         Qx, Ux = self._truth(s, rv, jq)
-        kw = dict(atol=2e-5, rtol=3e-5, max_substeps=8)
-        prof, info = tsol.lsoda_solve(*_t(lam, j, K), **kw)
-        ref, rinfo = jsol.lsoda_solve(lam, j, K, **kw)
+        prof, info = tsol.lsoda_solve(*_t(lam, j, K), **self.LSODA)
+        ref, rinfo = jax_lsoda
         _close(prof, ref)
         assert info["converged"] and info["substeps"] == rinfo["substeps"] > 1
         I = prof[0, 0].numpy()

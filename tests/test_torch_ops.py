@@ -17,6 +17,8 @@ from grtrans_tpu_torch.ops import polyroots as troots
 from grtrans_tpu_torch.ops import quadrature as tquad
 from grtrans_tpu_torch.ops import weierstrass as tw
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 RTOL = 1e-12
 
 

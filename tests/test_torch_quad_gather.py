@@ -17,9 +17,12 @@ from grtrans_tpu.emis import polsynchpl as jpl
 from grtrans_tpu.ops.pallas_gather import (quad_combine, vmem_row_gather,
                                            xla_quad_gather)
 from grtrans_tpu_torch.emis import polsynchpl as tpl
+from grtrans_tpu_torch.ops import quad_gather as qgm
 from grtrans_tpu_torch.ops.quad_gather import (quad_gather, quad_gather_ref,
                                                quad_gather_rows,
                                                quad_gather_rows_ref)
+
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
 
 NS, NC, NF, N = 16384, 4, 9, 4096
 TOL = {np.float32: 1e-6, np.float64: 1e-14}
@@ -141,3 +144,53 @@ def test_quad_gather_rows_matches_xla_gathers(r):
     ref = sum(xla_quad_gather(jnp.asarray(table), jnp.asarray(idx[:, i]),
                               jnp.asarray(w[:, i]), 10) for i in range(r))
     _close(out, ref, 1e-14)
+
+
+# (nc, nf) of every quad_gather caller and the kernel each gets on the card
+GATHER_SHAPES = {"ffjet": ((4, 9), "tiled"), "polsynchpl": ((2, 6), "tiled"),
+                 "polsynchpl_p": ((4, 6), "tiled"), "harm": ((4, 10), "tiled"),
+                 "koral": ((4, 11), "tiled"), "sphacc": ((2, 2), "tiled"),
+                 "numdisk": ((4, 1), "tiled"), "phatdisk": ((2, 101), "wide"),
+                 "other": ((3, 5), "generic")}
+# (R, nc, nf, itemsize) of every quad_gather_rows caller
+ROWS_SHAPES = {
+    "harm3d_f64": ((4, 2, 10, 8), "tiled"),
+    "harm3d_f32": ((4, 2, 10, 4), "tiled"),
+    "slowlight_f64": ((8, 2, 10, 8), "tiled"),
+    "koral3d_f64": ((4, 2, 11, 8), "tiled"),
+    "koral3d_f32": ((4, 2, 11, 4), "simple"),
+    "bins3d_f64": ((8, 1, 6, 8), "simple"),
+    "bins3d_f32": ((8, 1, 6, 4), "simple"),
+    "bins2d_f64": ((4, 1, 6, 8), "simple"),
+    "bins_odd_f64": ((8, 1, 3, 8), "simple"),
+    "harmpi_f64": ((1, 1, 10, 8), "tiled"),
+    "harmpi_kel_f64": ((1, 1, 13, 8), "simple"),
+    "wide_rows_f64": ((1, 1, 40, 8), "simple"),
+    "runtime_shape": ((3, 2, 5, 8), "simple"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GATHER_SHAPES))
+def test_gather_kernel_choice(name):
+    """The shape rule of quad_gather on the card: the tiled kernel for the
+    narrow shapes in use when its 16-byte operands are aligned, the
+    wide-row kernel for nf >= 32, the generic one otherwise or when
+    forced."""
+    (nc, nf), kernel = GATHER_SHAPES[name]
+    assert qgm.gather_kernel(nc, nf, aligned=True) == kernel
+    assert qgm.gather_kernel(nc, nf, aligned=True, generic=True) == "generic"
+    assert qgm.gather_kernel(nc, nf, aligned=False) == \
+        ("wide" if kernel == "wide" else "generic")
+
+
+@pytest.mark.parametrize("name", sorted(ROWS_SHAPES))
+def test_rows_kernel_choice(name):
+    """The shape rule of quad_gather_rows on the card: the bulk-copy
+    kernel where a row is a whole number of 16-byte pieces (of at most 256
+    bytes) of an aligned table and (R, nc) is instantiated (not the binned
+    populations); the simple one otherwise or when forced."""
+    (r, nc, nf, itemsize), kernel = ROWS_SHAPES[name]
+    assert qgm.rows_kernel(r, nc, nf, itemsize, True) == kernel
+    assert qgm.rows_kernel(r, nc, nf, itemsize, True, simple=True) == \
+        "simple"
+    assert qgm.rows_kernel(r, nc, nf, itemsize, False) == "simple"

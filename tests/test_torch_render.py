@@ -21,6 +21,8 @@ from grtrans_tpu_torch import convert
 from grtrans_tpu_torch.orchestrator import grtrans_run as trun
 from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 REPO = Path(__file__).resolve().parents[1]
 
 

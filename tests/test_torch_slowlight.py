@@ -29,6 +29,8 @@ from grtrans_tpu_torch.testing import grmhd_dump as gd
 
 from test_torch_grmhd import A, both
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 NN = (8, 8, 32)
 
 

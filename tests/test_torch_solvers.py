@@ -17,6 +17,8 @@ import torch
 from grtrans_tpu.integrate import solvers as jsol
 from grtrans_tpu_torch.integrate import solvers as tsol
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 NPIX, NPTS = 256, 80
 
 

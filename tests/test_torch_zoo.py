@@ -34,6 +34,8 @@ from grtrans_tpu_torch.testing import grmhd_dump as gd
 from test_torch_grmhd import (A, SP, both, check_image,
                               check_vals_and_convert, close, rays)
 
+torch.set_num_threads(1)   # the suite runs in parallel worker processes
+
 BINS = dict(nrelbin=3, relgammamin=10.0, relgammamax=1e4)
 KSP = dict(mbh=4.3e6, nfac=1e8, mu=0.25, gmin=10.0)
 
