@@ -69,17 +69,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      that frame's own index stream;
  13. slow light on the same camera: a three-slice series (nload = 3), equal
      to fast light on identical slices and brighter than the oldest slice
-     on a brightening series; on a 26 M wide camera, whose rays are all
-     clear of a fault that camera_delay shares with grtrans_tpu, its flux
-     lies between the fast-light fluxes of the oldest and the newest slice
-     by more than 1%; the kernel timed once more on the slow-light frame's
-     own index stream (R = 8);
+     on a brightening series; on a 26 M wide camera its flux lies between
+     the fast-light fluxes of the oldest and the newest slice by more than
+     1%; the kernel timed once more on the slow-light frame's own index
+     stream (R = 8); camera_delay on the 30 M camera, whose corner rays
+     turn within 1.4 uout of the trace's start: every ray within a few
+     hundred M of the others, the card's delays equal to the CPU's;
  14. the card against the port's CPU run at 16x16 x 64 for HARM3D, IHARM,
      THICKDISK, KORAL3D with SYNCHBIN, HARM and HARMPI;
  15. a HARM 2-D snapshot frame at full width (288x128 synthetic dump, the
      HARM3D frame's camera and physics, 100x100 x 400, f64) through
      Grtrans(...).run(model=...), launches of the tiled quad_gather kernel
-     counted; the kernel timed once more on that frame's index stream.
+     counted; the kernel timed once more on that frame's index stream;
+ 16. the FFJET flagship run from files: its namelists and files.in
+     written, `python -m grtrans_tpu_torch files.in` in a process of its
+     own to FITS, then __main__.main() in this process to the reference
+     binary, launches counted; both files read back equal to float32 of
+     an in-process render;
+ 17. the flagship with gdfile=: a run that traces and saves the bundle,
+     one that loads it, launches counted; the images bitwise equal and
+     equal to a plain run; walls of save_bundle, load_bundle and the
+     trace, and the bundle's size;
+ 18. geodebug: the flagship's brightest pixel dumped on the card and
+     re-integrated there from the dump, equal to the image's pixel;
+ 19. pgriter: a secant fit of mdot to the flux of a render at 6e13 g/s,
+     from 4e13, on the HARM3D snapshot of phase 12, loaded once; one
+     quad_gather_rows launch a render.
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -1000,7 +1015,25 @@ def snapshot_phases(dev, qg):
             and fluxes[0] * 1.01 < fluxes[1] < fluxes[2] * 0.99):
         raise AssertionError(f"slow light does not lag the growing source: "
                              f"{fluxes}")
-    return fast_counts, slow_counts, frame_times, slow_times
+    # the 30 M camera's delays: its corner rays turn within 1.4 uout of the
+    # trace's start, where grtrans_tpu's delay is short by the camera's
+    # distance; here every ray lies within a few hundred M of the others
+    cam = camera.make_camera(a, mu0, *cfg.gridvals, NN[0], NN[1], device=dev)
+    ray = (a, mu0, cam.alpha, cam.beta, cam.l, cam.q2, cam.sm, cam.u0,
+           cfg.uout)
+    delay = geokerr.camera_delay(*ray)
+    cpu = geokerr.camera_delay(*(v.cpu() if torch.is_tensor(v) else v
+                                 for v in ray))
+    spread = (delay.max() - delay.min()).item()
+    rel = ((delay.cpu() - cpu).abs() / cpu).max().item()
+    print(f"camera_delay, 30 M camera: {delay.numel()} rays held, "
+          f"{delay.min().item():.6f} .. {delay.max().item():.6f} M (spread "
+          f"{spread:.3f} M); card vs CPU max rel {rel:.3e} (bar 1e-12)")
+    if not (spread < 500.0 and delay.min().item() > 1.0e7 and rel <= 1e-12):
+        raise AssertionError(f"camera_delay: spread {spread} M, min "
+                             f"{delay.min().item()}, card vs CPU {rel}")
+    model._store(base)
+    return fast_counts, slow_counts, frame_times, slow_times, model
 
 
 def snapshot_card_vs_cpu_phase():
@@ -1091,6 +1124,199 @@ def harm2d_phase(dev, qg):
                                     table, idx, w, nc, nf), max_abs_err=err)
 
 
+def file_phases(dev, qg):
+    """Phases 16-18: the flagship run from files through the command line
+    (a process of its own to FITS, then main() in this process to the
+    reference binary, counted), through gdfile bundles, and one pixel
+    through geodebug.  Returns {path: counts}."""
+    from grtrans_tpu_torch import convert
+    from grtrans_tpu_torch.__main__ import main as cli_main
+    from grtrans_tpu_torch.api import Grtrans
+    from grtrans_tpu_torch.fluid import ffjet
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.geodesics import cache, camera, geokerr
+    from grtrans_tpu_torch.io import binio, fitsio, namelist
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
+    from grtrans_tpu_torch.tools import geodebug
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        dfile = tmp / "ffjet.bin"
+        write_ffjet_dump(dfile, nx=FFJET_NX, seed=SEED)
+        cfg = flagship_config(GrtransConfig, dfile, NN)
+        npix = NN[0] * NN[1]
+        ref = Grtrans()
+        ref.cfg = cfg
+        ref.run(device=dev)
+        want = ref.ivals[:, :, 0].astype(np.float32)
+
+        # 16. the command line: namelists written, a process of its own
+        namelist.write_inputs(cfg, tmp / "inputs.in")
+        namelist.write_files_in(tmp / "inputs.in", tmp / "cams.fits",
+                                tmp / "files.in")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "grtrans_tpu_torch", str(tmp / "files.in")],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600)
+        cold_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m grtrans_tpu_torch failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        reset_counts(qg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cli_main([str(tmp / "files.in"), "--output", str(tmp / "cams.bin")])
+        warm_s = time.perf_counter() - t0
+        paths["cli_flagship"] = read_counts(qg)
+        cli_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        _, fits_cams, fits_keys = fitsio.read_fits(tmp / "cams.fits")
+        _, bin_cams, bin_keys = binio.read_camera_bin(tmp / "cams.bin")
+        got = {"FITS": fits_cams[0].reshape(4, npix).T, "binary": bin_cams[0]}
+        for name, cam in got.items():
+            tol = 1e-6 * np.abs(want)
+            if cam.shape != want.shape or not (np.abs(cam - want)
+                                               <= tol).all():
+                raise AssertionError(f"CLI {name} file differs from the "
+                                     "in-process render")
+        if abs(fits_keys[0][0] / cfg.fmin - 1.0) > 1e-12 \
+                or abs(bin_keys[0][0] / cfg.fmin - 1.0) > 1e-6:
+            raise AssertionError(f"CLI keys {fits_keys[0]}, {bin_keys[0]}")
+        print(f"CLI {NN[0]}x{NN[1]}x{NN[2]}: python -m grtrans_tpu_torch "
+              f"(cold process, to FITS) {cold_s:.3f} s; main() in process "
+              f"(to the binary) {warm_s * 1e3:.1f} ms, peak memory "
+              f"{cli_peak:.3f} GiB, launches "
+              f"{paths['cli_flagship']}; both files equal float32 of the "
+              f"render; the process said: "
+              f"{proc.stdout.strip().splitlines()[0]}")
+
+        # 17. gdfile: trace and save, then load and render
+        model = convert.ffjet_from_arrays(*ffjet.load_ffjet_file(dfile), dev)
+        gd = tmp / "geo.npz"
+        walls, peaks = {}, {}
+        images = []
+        for step in ("trace_save", "load"):
+            reset_counts(qg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            ivals, _, _ = grtrans_run(cfg, model, device=dev, gdfile=str(gd))
+            torch.cuda.synchronize()
+            walls[step] = time.perf_counter() - t0
+            peaks[step] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            paths[f"gdfile_{step}"] = read_counts(qg)
+            images.append(ivals)
+        plain, _, _ = grtrans_run(cfg, model, device=dev)
+        if not torch.equal(images[0], images[1]):
+            raise AssertionError("gdfile: the loaded bundle renders another "
+                                 "image than the traced one")
+        rel = ((images[1] - plain).abs().sum() / plain.abs().sum()).item()
+        if not rel <= 1e-12:
+            raise AssertionError(f"gdfile image vs plain run: rel L1 {rel}")
+        size = gd.stat().st_size
+        cam = camera.make_camera(0.998, 0.906, *cfg.gridvals, NN[0], NN[1],
+                                 device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        geo = geokerr.trace(0.998, 0.906, cam.alpha, cam.beta, cam.l, cam.q2,
+                            cam.sm, cam.u0, NN[2], uout=cfg.uout,
+                            phi0=cfg.phi0)
+        torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cache.save_bundle(tmp / "again.npz", geo)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = cache.load_bundle(tmp / "again.npz", device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if not all(torch.equal(x, y) for x, y in zip(geo, back)):
+            raise AssertionError("gdfile: a bundle does not load as saved")
+        print(f"gdfile {NN[0]}x{NN[1]}x{NN[2]}: run that traces and saves "
+              f"{walls['trace_save']:.3f} s (peak memory "
+              f"{peaks['trace_save']:.3f} GiB), run that loads "
+              f"{walls['load']:.3f} s ({peaks['load']:.3f} GiB; launches "
+              f"{paths['gdfile_load']}); "
+              f"bundle {size / 1e6:.1f} MB on disk; save_bundle "
+              f"{save_s:.3f} s, load_bundle {load_s:.3f} s, against "
+              f"geokerr.trace {trace_s * 1e3:.1f} ms on a plain run; "
+              f"images equal, rel L1 vs plain {rel:.3e}")
+        del geo, back, images
+        gd.unlink()
+        (tmp / "again.npz").unlink()
+
+        # 18. one pixel through geodebug, re-integrated on the card
+        pixel = int(np.argmax(ref.ivals[:, 0, 0])) + 1
+        reset_counts(qg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        dump = geodebug.dump_ray(cfg, pixel, tmp / "ray.npz", model=model,
+                                 device=dev)
+        dump_s = time.perf_counter() - t0
+        paths["geodebug_ray"] = read_counts(qg)
+        dump_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        again = geodebug.reintegrate(geodebug.load(tmp / "ray.npz"), 0,
+                                     device=dev)[0]
+        full = ref.ivals[pixel - 1, :, 0]
+        err = np.abs(again - full).max() / np.abs(full).max()
+        print(f"geodebug pixel {pixel}: dump_ray {dump_s * 1e3:.1f} ms, "
+              f"peak memory {dump_peak:.3f} GiB, launches "
+              f"{paths['geodebug_ray']}; {len(dump)} arrays, re-integrated "
+              f"I {again[0]:.9e} vs the image's {full[0]:.9e}, max rel "
+              f"{err:.3e} (bar 1e-10)")
+        if not err <= 1e-10:
+            raise AssertionError(f"geodebug re-integration off by {err}")
+    return paths
+
+
+def pgriter_phase(dev, qg, model):
+    """Phase 19: a secant fit of mdot to a flux on the full-size HARM3D
+    snapshot, the model loaded once (by the snapshot phase).  Returns the
+    counts of the fit."""
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid import base
+    from grtrans_tpu_torch.tools import pgriter
+
+    cfg = GrtransConfig(**snapshot_kwargs("HARM3D", NN))
+    target, _ = pgriter.flux_at(cfg, 6e13, model=model, device=dev)
+    walls = []
+    real_flux_at, real_factory = pgriter.flux_at, base._REGISTRY["HARM3D"]
+    loads = []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_flux_at(*args, **kw)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    pgriter.flux_at = timed
+    base._REGISTRY["HARM3D"] = lambda **kw: loads.append(1) or \
+        real_factory(**kw)
+    reset_counts(qg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        fitted, flux, hist = pgriter.fit_flux(cfg, target, 4e13, model=model,
+                                              device=dev)
+    finally:
+        pgriter.flux_at = real_flux_at
+        base._REGISTRY["HARM3D"] = real_factory
+    counts = read_counts(qg)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"pgriter HARM3D {NN[0]}x{NN[1]}x{NN[2]}: mdot {fitted:.9e} g/s "
+          f"(target's 6e13) in {len(hist)} renders, flux {flux:.9e} vs "
+          f"{target:.9e}; walls (s) {[round(w, 3) for w in walls]}; peak "
+          f"memory {peak:.3f} GiB; "
+          f"launches {counts}; snapshot loads during the fit {len(loads)}")
+    if not (abs(np.log(flux / target)) < 1e-3 and not loads
+            and counts["quad_gather_rows"] == len(hist)):
+        raise AssertionError(f"pgriter: flux {flux} vs {target}, loads "
+                             f"{len(loads)}, counts {counts}")
+    return counts
+
+
 def by_path(paths, key):
     return {name: c[key] for name, c in paths.items()}
 
@@ -1157,12 +1383,15 @@ def run(dev):
     card_vs_cpu_phase()
     shapes.update(rows_phase(dev, qg))
     (paths["harm3d_snapshot"], paths["harm3d_slow_light"], frame_times,
-     slow_times) = snapshot_phases(dev, qg)
+     slow_times, snapshot) = snapshot_phases(dev, qg)
     shapes["snapshot R=4 f64, frame's rows"] = frame_times
     shapes["three slices R=8 f64, slow-light frame's rows"] = slow_times
     snapshot_card_vs_cpu_phase()
     paths["harm2d_snapshot"], shapes["harm 2-D 288x128 f64, frame's rows"] \
         = harm2d_phase(dev, qg)
+    paths.update(file_phases(dev, qg))
+    paths["pgriter_harm3d"] = pgriter_phase(dev, qg, snapshot)
+    del snapshot
 
     main = shapes["ffjet f64"]
     wide = shapes["phatdisk f64"]

@@ -11,6 +11,7 @@ import torch
 from grtrans_tpu_torch import constants as pc
 from grtrans_tpu_torch.config import GrtransConfig
 from grtrans_tpu_torch.io.binio import write_camera_bin
+from grtrans_tpu_torch.io.fitsio import write_fits
 from grtrans_tpu_torch.orchestrator import grtrans_run
 
 
@@ -123,11 +124,16 @@ class Grtrans:
         return xcen, ycen
 
     def write_output(self, path, fmt="bin"):
-        """Write the cameras in the reference's raw binary layout."""
-        if fmt != "bin":
-            raise NotImplementedError(
-                f"write_output(fmt={fmt!r}): only \"bin\" is ported")
+        """Write the cameras in the reference's raw binary layout, or with
+        fmt="fits" as FITS that carries every run parameter on each
+        camera (camera.f90:219-305)."""
         ivals_list = [self.ivals[:, :, i] for i in range(self.ivals.shape[2])]
+        if fmt == "fits":
+            write_fits(path, self.ab, ivals_list,
+                       self.cfg.camera_key_dicts()[:len(ivals_list)])
+            return
+        if fmt != "bin":
+            raise ValueError(f"write_output(fmt={fmt!r}): \"bin\" or \"fits\"")
         freqs = np.atleast_1d(self.freqs)
         keys = [[float(freqs[i % len(freqs)])]
                 for i in range(len(ivals_list))]

@@ -81,3 +81,44 @@ class GrtransConfig:
         if self.nmu == 1:
             return np.array([self.mumin])
         return np.linspace(self.mumin, self.mumax, self.nmu)
+
+    def header_keys(self, freq=None, mu=None, mdot=None, t=None):
+        """Run-parameter provenance for output headers: every input
+        parameter plus this camera's (freq, mu, mdot, t), as the reference
+        persists its inputs as FITS keywords (camera.f90:219-305)."""
+        d = {}
+        for name in ("standard", "mumin", "mumax", "nmu", "phi0", "spin",
+                     "uout", "uin", "rcut", "nrotype", "i1", "i2", "fname",
+                     "dt", "nt", "nload", "nmdot", "mdotmin", "mdotmax",
+                     "sigcut", "ename", "mbh", "nfreq", "fmin", "fmax",
+                     "muval", "gmin", "gmax", "p1", "p2", "jetalpha",
+                     "stype", "use_geokerr", "nvals", "iname", "cflag",
+                     "extra", "debug"):
+            d[name] = getattr(self, name)
+        for i, v in enumerate(self.gridvals):
+            d[f"grid{i + 1}"] = float(v)
+        for i, v in enumerate(self.nn):
+            d[f"nn{i + 1}"] = int(v)
+        if self.epcoefindx is not None:
+            for i, v in enumerate(self.epcoefindx):
+                d[f"epco{i + 1}"] = int(v)
+        for k, v in self.fargs.items():
+            if isinstance(v, (bool, int, float, str, np.integer,
+                              np.floating)):
+                d[f"f_{k}"] = v
+        if freq is not None:
+            d["freq"] = float(freq)
+        if mu is not None:
+            d["mu0cam"] = float(mu)
+        if mdot is not None:
+            d["mdotcam"] = float(mdot)
+        if t is not None:
+            d["tcam"] = float(t)
+        return d
+
+    def camera_key_dicts(self):
+        """Per-camera provenance dicts in output camera order (freq
+        fastest, then mdot, then time, then mu; pgrtrans.f90:198-211)."""
+        return [self.header_keys(freq=f, mu=mu, mdot=md, t=it * self.dt)
+                for mu in self.mus() for it in range(self.nt)
+                for md in self.mdots() for f in self.freqs()]

@@ -203,26 +203,52 @@ def apply_source_params(ei, sp):
     return ei._replace(ncgsnth=ncgsnth), gmin_used
 
 
+def one_snapshot(nt):
+    """The reference's nt, the count of dump files read as a time series
+    (the namelists' fnt), which grtrans_tpu's snapshot models accept: the
+    port loads one snapshot and grows a series with append_slice."""
+    if nt != 1:
+        raise NotImplementedError(
+            f"nt={nt}: load one snapshot and add slices with append_slice")
+
+
+def not_read(name, **given):
+    """Keywords that model `name` takes, as grtrans_tpu's does (so that a
+    namelist's fargs filter alike), and never reads: each given as
+    (value, default), and refused unless it keeps its default."""
+    for key, (value, default) in given.items():
+        if value != default:
+            raise ValueError(f"{name} does not read {key} (got {value!r}; "
+                             f"only the default {default!r} is taken)")
+
+
 _REGISTRY: Dict[str, Callable] = {}
 
 
 def register(name):
-    """Register a model factory `f(device=..., **fargs)` under `name`."""
+    """Register a model factory `f(device=..., **fargs)` under `name`.
+    inspect.signature of the factory names the fargs it takes (a factory
+    that passes **fargs on sets __wrapped__ to their consumer)."""
     def deco(factory):
         _REGISTRY[name.upper()] = factory
         return factory
     return deco
 
 
-def load_fluid_model(name, *, device, **kwargs):
-    """Instantiate a fluid model by fname on `device`
-    (fluid.f90:163-243)."""
+def import_all_models():
+    """Import every model module, which fills the registry."""
     from grtrans_tpu_torch.fluid import (analytic, disks, ffjet,  # noqa: F401
                                          harm, harm3d, harmpi, hotspot,
                                          iharm, koral, mb09, sphacc,
                                          thickdisk)
+
+
+def load_fluid_model(name, *, device, **kwargs):
+    """Instantiate a fluid model by fname on `device`
+    (fluid.f90:163-243)."""
+    import_all_models()
     factory = _REGISTRY.get(name.upper())
     if factory is None:
-        raise NotImplementedError(
-            f"fluid model {name!r} is not ported; have {sorted(_REGISTRY)}")
+        raise ValueError(f"unknown fluid model {name!r}; have "
+                         f"{sorted(_REGISTRY)}")
     return factory(device=device, **kwargs)

@@ -120,6 +120,9 @@ def load_phatdisk(*, device, **kwargs):
     return PhatDisk(**phatdisk_tables(**kwargs), device=device)
 
 
+load_phatdisk.__wrapped__ = phatdisk_tables     # the fargs it takes
+
+
 def read_numdisk_file(dfile, tscl=1.0, rscl=1.0):
     """NUMDISK table dict (nr, nphi, r, phi, T; r fastest) from the
     Fortran unformatted file (fluid_model_numdisk.f90:190-212)."""

@@ -130,7 +130,11 @@ class FFJet(nn.Module):
 
 
 @base.register("FFJET")
-def load(dfile, ntscl=2.0, nrscl=70.0, *, device):
-    """FFJET model from the dump at `dfile` on `device`."""
+def load(dfile, ntscl=2.0, nrscl=70.0, ref_conventions=False, *, device):
+    """FFJET model from the dump at `dfile` on `device`.  grtrans_tpu's
+    ref_conventions ablation (the reference's float32 grids) is not
+    ported."""
+    if ref_conventions:
+        raise NotImplementedError("FFJET ref_conventions is not ported")
     grids, fields = load_ffjet_file(dfile)
     return FFJet(grids, fields, ntscl=ntscl, nrscl=nrscl, device=device)

@@ -35,6 +35,18 @@ from grtrans_tpu_torch.ops.quad_gather import quad_gather_rows
 FIELDS = ("rho", "p", "u0", "vrl", "vtl", "vpl", "b0", "br", "bth", "bph")
 
 
+def to_lnrf_storage(u_bl, b_bl, r, th, a):
+    """BL four-vectors u^mu, b^mu (..., 4) -> the stored layout: u0, the
+    LNRF velocities vrl, vtl, vpl and b^mu (init_harm3d_data); rho and p
+    are None, for the caller to fill."""
+    u0 = u_bl[..., 0]
+    vrl, vtl, vpl = kerr.lnrf_frame(u_bl[..., 1] / u0, u_bl[..., 2] / u0,
+                                    u_bl[..., 3] / u0, r, a, th)
+    return {"rho": None, "p": None, "u0": u0, "vrl": vrl, "vtl": vtl,
+            "vpl": vpl, "b0": b_bl[..., 0], "br": b_bl[..., 1],
+            "bth": b_bl[..., 2], "bph": b_bl[..., 3]}
+
+
 def phi_pair_pack(st, phi_axis):
     """(..., nf) field stack -> (rows, 2 nf): every zone followed by its
     phi + 1 neighbour (periodic wrap), so that a trilinear sample needs 4

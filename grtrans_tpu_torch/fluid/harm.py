@@ -127,11 +127,12 @@ def harm_convert(fv_, sp, mdot_code):
 class Harm(nn.Module):
     """fargs: dfile (and hfile) of an ASCII dump, or dump= the dict of
     `read_harm_dump`; mdot_code, the code-unit accretion rate
-    (fluid.f90:964)."""
+    (fluid.f90:964); nt, see base.one_snapshot."""
 
     def __init__(self, dfile="dump040", hfile=None, dump=None,
-                 mdot_code=0.003, *, device):
+                 mdot_code=0.003, nt=1, *, device):
         super().__init__()
+        base.one_snapshot(nt)
         d = dump if dump is not None else read_harm_dump(dfile, hfile)
         self.mdot_code = mdot_code
         self.h = float(d["h"])

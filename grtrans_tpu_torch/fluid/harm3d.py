@@ -60,11 +60,16 @@ def read_harm3d(dfile, hfile=None):
 @base.register("HARM3D")
 class Harm3D(grmhd3d.Grmhd3D):
     """fargs: dfile (and hfile, default dfile + ".head"), or dump= the dict
-    of `read_harm3d`; mdot_code.  h = 1 is theta = pi x2 (Chris White)."""
+    of `read_harm3d`; mdot_code; nt, see base.one_snapshot.  The theta
+    map's h comes from the dump (h = 1 is theta = pi x2, Chris White); the
+    keyword h is taken, as in grtrans_tpu, and refused unless 1.0
+    (base.not_read)."""
 
     def __init__(self, dfile="dump040.bin", hfile=None, dump=None,
-                 mdot_code=0.003, *, device):
+                 mdot_code=0.003, nt=1, h=1.0, *, device):
         super().__init__()
+        base.one_snapshot(nt)
+        base.not_read("HARM3D", h=(h, 1.0))
         d = dump if dump is not None else read_harm3d(dfile, hfile)
         self.mdot_code = mdot_code
         self.h = float(d.get("h", 1.0))

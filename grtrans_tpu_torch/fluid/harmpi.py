@@ -337,12 +337,13 @@ def read_harmpi_dump(dfile, hfile=None):
 @base.register("HARMPI")
 class HarmPI(nn.Module):
     """fargs: dfile (and hfile), or dump= the dict of `read_harmpi_dump`;
-    mdot_code (default G M / c^3 at convert).  The electron model is picked
-    by gmin, see the module docstring."""
+    mdot_code (default G M / c^3 at convert); nt, see base.one_snapshot.
+    The electron model is picked by gmin, see the module docstring."""
 
-    def __init__(self, dfile="", hfile=None, dump=None, mdot_code=None, *,
-                 device):
+    def __init__(self, dfile="", hfile=None, dump=None, mdot_code=None,
+                 nt=1, *, device):
         super().__init__()
+        base.one_snapshot(nt)
         d = dump if dump is not None else read_harmpi_dump(dfile, hfile)
         h = d["h"] if isinstance(d.get("h"), dict) else d
         self.mdot_code = mdot_code

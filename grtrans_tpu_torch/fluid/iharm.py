@@ -82,12 +82,15 @@ def read_iharm(dfile, hfile=None):
 class Iharm(grmhd3d.Grmhd3D):
     """fargs: dfile (and hfile, default dfile + ".head"), or dump= the dict
     of `read_iharm`.  The dump's metric flag picks MKS(h) or MMKS; gmin >=
-    1 is Moscibrodzka's R_high, gmin = -1 Ressler's entropy electrons."""
+    1 is Moscibrodzka's R_high, gmin = -1 Ressler's entropy electrons.
+    nt: see base.one_snapshot."""
 
     interp_td_in_x2 = True
 
-    def __init__(self, dfile="iharm_dump", hfile=None, dump=None, *, device):
+    def __init__(self, dfile="iharm_dump", hfile=None, dump=None, nt=1, *,
+                 device):
         super().__init__()
+        base.one_snapshot(nt)
         d = dump if dump is not None else read_iharm(dfile, hfile)
         self.asim = float(d["a"])
         self.h = float(d["hslope"])

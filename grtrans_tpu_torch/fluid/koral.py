@@ -344,8 +344,9 @@ class Koral3D(_KoralBase):
 
 def _variant(name, region_id):
     def load(*, device, **fargs):
-        return Koral3D(region=region_id, device=device, **fargs)
+        return Koral3D(**{"region": region_id, **fargs}, device=device)
     load.__doc__ = f"KORAL3D restricted to region {region_id} ({name})."
+    load.__wrapped__ = Koral3D          # the fargs it takes
     return base.register(name)(load)
 
 

@@ -83,13 +83,18 @@ class MB09(ThickDisk):
     """The trilinear sampler of ThickDisk with MB09's theta map, file
     format and units.  fargs: gfile and dfile, or dump=dict(grid=..., data=...
     [, a=...]) of `read_mb09_grid` / `read_mb09_data`; asim_in, the spin
-    (the files do not carry it)."""
+    (the files do not carry it); nt, see base.one_snapshot.  hfile, jonfix
+    and mdot_code are THICKDISK's, taken as in grtrans_tpu and refused
+    unless at their defaults (base.not_read)."""
 
     thfunc = staticmethod(calcthmks9)
 
-    def __init__(self, dfile="", gfile="", dump=None, asim_in=0.9, *,
-                 device):
+    def __init__(self, dfile="", gfile="", dump=None, asim_in=0.9, nt=1,
+                 hfile=None, jonfix=1, mdot_code=0.0013, *, device):
         super(ThickDisk, self).__init__()
+        base.one_snapshot(nt)
+        base.not_read("MB09", hfile=(hfile, None), jonfix=(jonfix, 1),
+                      mdot_code=(mdot_code, 0.0013))
         if dump is not None:
             g, d = dump["grid"], dump["data"]
             self.asim = float(dump.get("a", asim_in))

@@ -148,13 +148,15 @@ def read_thickdisk_fieldline(dfile, hfile=None):
 @base.register("THICKDISK")
 class ThickDisk(nn.Module):
     """fargs: dfile (and hfile), or dump= the dict of
-    `read_thickdisk_fieldline`; jonfix (1: repair the floors); mdot_code."""
+    `read_thickdisk_fieldline`; jonfix (1: repair the floors); mdot_code;
+    nt, see base.one_snapshot."""
 
     thfunc = staticmethod(calcthmks6)
 
     def __init__(self, dfile="", hfile=None, jonfix=1, dump=None,
-                 mdot_code=0.0013, *, device):
+                 mdot_code=0.0013, nt=1, *, device):
         super().__init__()
+        base.one_snapshot(nt)
         d = dump if dump is not None else \
             read_thickdisk_fieldline(dfile, hfile)
         h = d["h"]

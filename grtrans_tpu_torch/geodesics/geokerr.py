@@ -22,7 +22,7 @@ from grtrans_tpu_torch.geometry import kerr
 from grtrans_tpu_torch.ops import polyroots
 from grtrans_tpu_torch.ops import weierstrass as wss
 from grtrans_tpu_torch.ops.intcast import to_int32
-from grtrans_tpu_torch.ops.quadrature import gl_nodes
+from grtrans_tpu_torch.ops.quadrature import gl_tensors
 
 NQ_LAM = 48     # nodes for the one-off lam(u) integrals
 NQ_SEG = 8      # nodes per segment for the cumulative t/phi/affine integrals
@@ -47,12 +47,6 @@ class GeodesicBundle(NamedTuple):
 def _bc(c, ndim):
     """Broadcast a (npix,)-shaped constant against an (npix, ...) array."""
     return c.reshape(c.shape + (1,) * (ndim - c.dim()))
-
-
-def _gl(n, like):
-    x, w = gl_nodes(n)
-    return (torch.as_tensor(x, dtype=like.dtype, device=like.device),
-            torch.as_tensor(w, dtype=like.dtype, device=like.device))
 
 
 # radial potential U(u) = 1 + (a^2-l^2-q2) u^2 + 2((a-l)^2+q2) u^3 - a^2 q2 u^4
@@ -80,7 +74,7 @@ def _radial_setup(a, l, q2, u0, uf):
     turn = u_turn < uf
 
     # lam_turn = int_{u0}^{u_turn} du/sqrt(U) via u = u_turn - s^2
-    x, w = _gl(NQ_LAM, l)
+    x, w = gl_tensors(NQ_LAM, l)
     top = torch.where(turn, u_turn, u0 + 1.0)
     s0 = (top - u0).clamp_min(0.0).sqrt()
     s = s0[..., None] * x
@@ -94,7 +88,7 @@ def _radial_setup(a, l, q2, u0, uf):
 
 def _lam_of_u(cU, u0, u1):
     """int_{u0}^{u1} du/sqrt(U), U > 0 on the open interval."""
-    x, w = _gl(NQ_LAM, u0)
+    x, w = gl_tensors(NQ_LAM, u0)
     uu = u0[..., None] + (u1 - u0)[..., None] * x
     f = 1.0 / _u_eval(cU, uu).clamp_min(1e-37).sqrt()
     return (f * w).sum(-1) * (u1 - u0)
@@ -131,7 +125,7 @@ def _polar_setup(a, l, q2, mu0, sm):
         mminus = torch.minimum(r1, r2)
         a2mp = a2 * mplus
         a2mm = c2 - a2mp                     # = a^2 m-
-    x, w = _gl(NQ_LAM, l)
+    x, w = gl_tensors(NQ_LAM, l)
 
     # ordinary branch: mu = sqrt(m+) sin psi, dlam = dpsi / sqrt(D)
     Dconst = -a2mm
@@ -317,7 +311,7 @@ def _cumulative_phases(st, a, l, lam_grid, u_grid=None, mu_grid=None,
     so the lam-space rule is evaluated only on a window there.  Sparse
     grids (trace_polar, camera_delay) keep node_interp=False: exact
     Weierstrass evaluation at every node, both rules on every segment."""
-    x, w = _gl(NQ_SEG, lam_grid)
+    x, w = gl_tensors(NQ_SEG, lam_grid)
     a_ = lam_grid[..., :-1]
     b_ = lam_grid[..., 1:]
     dseg = b_ - a_
@@ -468,7 +462,15 @@ def camera_delay(a, mu0, alpha, beta, l, q2, sm, u0, uout):
     st, _ = _setup(a, mu0, l, q2, sm, u0)
     uo = torch.minimum(torch.full_like(l, uout), st.u_turn * (1 - 1e-9))
     lam_start = _lam_of_u(st.cU, st.u0, torch.maximum(uo, st.u0))
-    grid = torch.stack([torch.zeros_like(lam_start), lam_start], dim=-1)
+    # _cumulative_phases keeps the lam-space rule on a segment that comes
+    # within its own width of the turning point; over [0, lam_start] that
+    # rule would take the r^2 ~ 1 / lam^2 rise at the camera.  So a ray
+    # whose trace starts past half its turning time is cut at lam_turn / 2:
+    # the ln r rule from the camera, then a segment near the turn (the
+    # second segment has zero width for every other ray)
+    lam_mid = torch.minimum(lam_start, 0.5 * st.lam_rturn)
+    grid = torch.stack([torch.zeros_like(lam_start), lam_mid, lam_start],
+                       dim=-1)
     dt_c, _, _ = _cumulative_phases(st, a, l, grid)
     return dt_c[..., -1]
 

@@ -23,6 +23,11 @@ def horizon(a):
     return 1.0 + math.sqrt(1.0 - a * a)
 
 
+def delta(r, a):
+    """Delta = r^2 - 2r + a^2, expanded (grtrans_tpu's public form)."""
+    return r * r - 2.0 * r + a * a
+
+
 def _delta(r, a):
     """Delta = r^2 - 2r + a^2 in the factored form (r - r+)(r - r-),
     which stays exact near the horizon."""
@@ -67,6 +72,28 @@ def metric_con(r, th, a):
          1.0 / rho2,                                   # thth
          z,
          (d - a * a * sth * sth) / (d * rho2 * sth * sth)]  # phph
+    return torch.stack(g, dim=-1)
+
+
+def ks_metric_cov(r, th, a):
+    """Covariant Kerr-Schild spherical metric, packed (..., 10), float64
+    (kerr.f90:315-335)."""
+    r, th = torch.broadcast_tensors(r.to(torch.float64),
+                                    th.to(torch.float64))
+    cth, sth = th.cos(), th.sin()
+    rho2 = r * r + a * a * cth * cth
+    psi4 = 2.0 * r / rho2
+    z = torch.zeros_like(r)
+    g = [-(1.0 - psi4),                                  # tt
+         psi4,                                           # tr
+         z,
+         -a * sth * sth * psi4,                          # tph
+         1.0 + psi4,                                     # rr
+         z,
+         -a * sth * sth * (1.0 + psi4),                  # rph
+         rho2,                                           # thth
+         z,
+         sth * sth * (rho2 + a * a * (1.0 + psi4) * sth * sth)]  # phph
     return torch.stack(g, dim=-1)
 
 

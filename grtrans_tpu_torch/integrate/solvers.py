@@ -69,9 +69,17 @@ def _lam12(aq, au, av, rq, ru, rv, eps):
     # regularized sqrts keep the eigenvalue kinks at pure rotation / pure
     # absorption finite, with negligible eigenvalue error
     scale = eps ** 1.5 * (a2 + p2) + _TINY
-    rt = ((a2 - p2) ** 2 / 4.0 + ap ** 2 + scale * scale).sqrt()
-    lam1 = ((rt + (a2 - p2) / 2.0).clamp_min(0.0) + scale).sqrt()
-    lam2 = ((rt - (a2 - p2) / 2.0).clamp_min(0.0) + scale).sqrt()
+    h = (a2 - p2) / 2.0
+    rt = (h ** 2 + ap ** 2 + scale * scale).sqrt()
+    # the large root is lam^2 = rt + |h|; the small one, rt - |h|, cancels
+    # when |rho| >> |a| (or |a| >> |rho|), so it is taken from the product
+    # (rt - |h|)(rt + |h|) = ap^2 + scale^2, which keeps it exact to
+    # rounding however small ap is and keeps it > 0
+    big = rt + h.abs()
+    big_sq = big + scale
+    small_sq = (ap ** 2 + scale * scale) / big.clamp_min(_TINY)
+    lam1 = torch.where(h >= 0.0, big_sq, small_sq).sqrt()
+    lam2 = torch.where(h >= 0.0, small_sq, big_sq).sqrt()
     return a2, p2, ap, lam1, lam2
 
 
@@ -140,8 +148,11 @@ def _calc_O(a, rho, dx):
     lo = -0.95 * math.log(fin.max)
     arg_p = ((lam1 - aI) * dx).clamp(lo, 60.0)
     arg_m = (-(lam1 + aI) * dx).clamp(lo, 60.0)
-    ecp = 0.5 * (torch.exp(arg_p) + torch.exp(arg_m))
-    ecm = 0.5 * (torch.exp(arg_p) - torch.exp(arg_m))
+    ep = torch.exp(arg_p)
+    ecp = 0.5 * (ep + torch.exp(arg_m))
+    # exp(-aI dx) sinh(lam1 dx) without the cancellation of a difference
+    # of exps when lam1 dx is small (a Faraday-thick cell)
+    ecm = -0.5 * ep * torch.expm1(arg_m - arg_p)
     eno = torch.exp((-aI * dx).clamp(lo, 60.0))
     ph = lam2 * dx
     cs = torch.cos(ph) * eno
@@ -162,6 +173,20 @@ def _calc_O(a, rho, dx):
     O_nil = eno * (eye - Znil + Z2n / 2.0 - _mm(Z2n, Znil) / 6.0)
     nil_ok = O_nil.abs().amax(dim=(0, 1)) <= 1.0 + 1e-6
     return torch.where(need_poly, torch.where(nil_ok, O_nil, eno * eye), O)
+
+
+def opacity_matrix(a, rho):
+    """Mueller opacity matrix (..., 4, 4) from a (..., 4) = [aI aQ aU aV]
+    and rho (..., 3) = [rhoQ rhoU rhoV]."""
+    m = _opac_m4(tuple(a.unbind(-1)), tuple(rho.unbind(-1)))
+    return m.movedim((0, 1), (-2, -1))
+
+
+def calc_O(a, rho, dx):
+    """exp(-K dx), (..., 4, 4), of the opacity matrix of a (..., 4) and
+    rho (..., 3) over dx (...)."""
+    m = _calc_O(tuple(a.unbind(-1)), tuple(rho.unbind(-1)), dx)
+    return m.movedim((0, 1), (-2, -1))
 
 
 def passivity_clamp(j, K):

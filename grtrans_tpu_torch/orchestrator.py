@@ -5,13 +5,17 @@ ivals has shape (ncams, npix, nvals) with the camera index running
 fastest over freq, then mdot, then time, then mu (pgrtrans.f90:198-211).
 """
 
+import time
+
 import torch
 
 from grtrans_tpu_torch import driver
 from grtrans_tpu_torch.fluid.base import (CONST, TAIL, SourceParams,
                                           load_fluid_model)
+from grtrans_tpu_torch.geodesics import cache as geo_cache
 from grtrans_tpu_torch.geodesics import camera as cam_mod
 from grtrans_tpu_torch.geodesics import geokerr
+from grtrans_tpu_torch.geodesics.geokerr import GeodesicBundle
 
 
 def _source_params(cfg, mdot):
@@ -23,7 +27,26 @@ def _source_params(cfg, mdot):
                         coefindx=cfg.epcoefindx)
 
 
+def camera_uout(cfg, cam):
+    """Where a camera's rays are traced from: cfg.uout when it lies inside
+    the camera's own u0 (by more than 1e-4 of it), else None, the camera."""
+    return cfg.uout if cfg.uout > cam.u0 * 1.0001 else None
+
+
+def trace_camera(cfg, cam, mu0, blk=slice(None)):
+    """The geodesics of the pixels `blk` of `cam`: for standard=2 to each
+    ray's first crossing of the equatorial plane, else cfg.nn[2] points
+    from camera_uout."""
+    ray = (cfg.spin, float(mu0), cam.alpha[blk], cam.beta[blk], cam.l[blk],
+           cam.q2[blk], cam.sm[blk], cam.u0)
+    if cfg.standard == 2:
+        return geokerr.trace_polar(*ray, npts=1, phi0=cfg.phi0)
+    return geokerr.trace(*ray, cfg.nn[2], phi0=cfg.phi0,
+                         uout=camera_uout(cfg, cam))
+
+
 def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
+                gdfile=None, verbose=False, device_output=False,
                 **unported):
     """Render every camera of `cfg` on `device`.
 
@@ -42,11 +65,26 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
     pgrtrans.f90:177-191) samples every point at its own retarded time:
     the delay from the camera to each ray's first point, less its least
     value over the whole camera, is taken off the ray's time coordinate
-    before each frame is sampled at time = it * cfg.dt.  standard=2 traces each ray to its
-    first crossing of the equatorial plane and renders that one point.
+    before each frame is sampled at time = it * cfg.dt.  standard=2 traces
+    each ray to its first crossing of the equatorial plane and renders that
+    one point.
+
+    gdfile: a path for the mu-camera's traced geodesics (the reference's
+    precomputed-geodesic file, geodesics.f90:155-187), with ".mu%.6f" of
+    mu0 appended when nmu > 1.  A bundle whose content key matches (camera,
+    trace parameters, i1/i2, whether the trace starts at uout) is loaded
+    in place of the trace; else the camera is traced (block by block with
+    `chunk`, assembled on the host) and the bundle saved.  The bundle holds
+    the trace as traced: the slow-light shift is applied after a load as
+    after a trace.  verbose: print the run's wall time.
+
     Returns (ivals, ab, freqs): ivals (ncams, npix, nvals [+ 19 for
     extra=1]) and ab (2, npix) tensors on `device`, freqs the numpy
-    frequency grid."""
+    frequency grid.  device_output=True returns ivals as the list of each
+    (mu, time, mdot) render's (nfreq, npix, nvals) tensor instead, in
+    camera order, without the concatenation: grtrans_tpu's option, which
+    there keeps the images off the host; here the default already leaves
+    them on `device` unsynchronised, so it changes only the container."""
     if unported:
         raise NotImplementedError(
             f"grtrans_run options not ported: {sorted(unported)}")
@@ -54,6 +92,7 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
         raise NotImplementedError(f"prec={cfg.prec!r} is not ported")
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be a positive pixel count, got {chunk}")
+    t_start = time.perf_counter()
     a = cfg.spin
     a1, a2, b1, b2 = cfg.gridvals
     nro, nphi, nup = cfg.nn
@@ -70,7 +109,7 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
                                    cfg.nrotype, cfg.rcut, device=device)
 
     # every mu-camera shares the pixel grid and so the observer u0
-    use_uout = cfg.uout > camera(mus[0]).u0 * 1.0001
+    uout = camera_uout(cfg, camera(mus[0]))
     ivals, ab = [], None
     for mu0 in mus:
         cam = camera(mu0)
@@ -86,25 +125,40 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
         npix = cam.alpha.shape[0]
         step = npix if chunk is None else min(chunk, npix)
         t0sh = None
-        if slow_light and use_uout:
+        if slow_light and uout is not None:
             # one minimum over the whole camera, not over a pixel block;
             # without uout the trace starts at the camera and t is global
             t0sh = geokerr.camera_delay(a, float(mu0), cam.alpha, cam.beta,
                                         cam.l, cam.q2, cam.sm, cam.u0,
-                                        cfg.uout)
+                                        uout)
             t0sh = t0sh - t0sh.min()
+
+        bundle = None
+        if gdfile is not None:
+            # a chunked camera keeps its bundle on the host
+            home = device if step == npix else "cpu"
+            key = geo_cache.bundle_key(
+                a, float(mu0), nup, uout, cfg.phi0,
+                cfg.standard, cfg.gridvals, nro, nphi, cfg.nrotype, cfg.rcut,
+                i1=cfg.i1, i2=cfg.i2)
+            path = gdfile if len(mus) == 1 else f"{gdfile}.mu{float(mu0):.6f}"
+            bundle = geo_cache.load_bundle(path, key, device=home)
+            if bundle is None or bundle.x.shape[0] != npix:
+                parts = [trace_camera(cfg, cam, mu0, slice(lo, lo + step))
+                         for lo in range(0, npix, step)]
+                bundle = GeodesicBundle(*(
+                    torch.cat([getattr(g, f).to(home) for g in parts])
+                    for f in GeodesicBundle._fields))
+                geo_cache.save_bundle(path, bundle, key)
         # scan[i]: the pixel blocks of the i-th (time, mdot) render
         scan = [[] for _ in range(cfg.nt * cfg.nmdot)]
         for lo in range(0, npix, step):
             blk = slice(lo, lo + step)
             alpha, beta = cam.alpha[blk], cam.beta[blk]
-            ray = (a, float(mu0), alpha, beta, cam.l[blk], cam.q2[blk],
-                   cam.sm[blk], cam.u0)
-            if cfg.standard == 2:
-                geo = geokerr.trace_polar(*ray, npts=1, phi0=cfg.phi0)
+            if bundle is None:
+                geo = trace_camera(cfg, cam, mu0, blk)
             else:
-                geo = geokerr.trace(*ray, nup, phi0=cfg.phi0,
-                                    uout=cfg.uout if use_uout else None)
+                geo = GeodesicBundle(*(v[blk].to(device) for v in bundle))
             if t0sh is not None:
                 t = geo.x[..., 0] - t0sh[blk, None]
                 geo = geo._replace(x=torch.cat([t[..., None],
@@ -124,4 +178,10 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
                         nvals=cfg.nvals, standard=cfg.standard,
                         extra=cfg.extra))
         ivals.extend(torch.cat(parts, dim=1) for parts in scan)
-    return torch.cat(ivals, dim=0), ab, freqs
+    if not device_output:
+        ivals = torch.cat(ivals, dim=0)
+    if verbose:
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"grtrans_run: {time.perf_counter() - t_start:.2f} s")
+    return ivals, ab, freqs

@@ -121,7 +121,7 @@ def test_models_load_by_name_on_a_device_and_refuse_another():
     assert (disk.a, disk.mbh, disk.mdot) == (0.998, 10.0, 0.1)
     assert convert.analytic_from_fields("thindisk", dict(mdot=0.3),
                                         "cpu").mdot == 0.3
-    with pytest.raises(NotImplementedError, match="HARM2D"):
+    with pytest.raises(ValueError, match="unknown fluid model 'HARM2D'"):
         tbase.load_fluid_model("HARM2D", device="cpu")
     with pytest.raises(NotImplementedError, match="FFJET"):
         convert.analytic_from_fields("FFJET", {}, "cpu")

@@ -14,6 +14,23 @@ into the emitting range).  Stokes I alone agrees to 6e-10.  Spectra of I to
 1e-9 relative, of Q, U, V to 1e-7 of I, centroids and sizes to 1e-7,
 polarization fractions to 1e-7 absolute.
 
+One camera is held against grtrans_tpu with its matricant made exact.  At
+1e11 Hz the hybrid / lsoda rays cross cells where |rho| >> |a| (909 of the
+1984 valid cells have |rho| / |a| > 100, up to 1.4e14, with |rho| dlam up
+to 99 rad): there grtrans_tpu's matricant eigenvalue
+lam1 = sqrt(rt - (p2 - a2)/2) cancels, and its O is up to 2.2e-7 off
+exp(-K dlam) (extended-precision expm), where the port's, taken from the
+product lam1 lam2 = |a.rho|, is within 1.1e-14
+(test_faraday_thick_cells_take_the_exact_matricant).  The camera's I
+spectrum is then 2.1e-9 from grtrans_tpu's, CP 1.1e-7, the orientation
+theta 1.6e-7 of itself.  So on that camera (FARADAY_THICK) the reference
+is grtrans_tpu's own render with its _calc_O replaced by the
+extended-precision expm of each cell (_jax_exact_render), and every bar
+above holds against it (measured: I 3e-13, Q, U, V 1e-10 of I, the
+moments 6.4e-10); the image bars are also held against grtrans_tpu as it
+is.  The same holds from the default uout (see
+test_default_uout_agrees_in_intensity).
+
 The cameras start at uout = 0.0025 (r = 400).  With the default
 uout = 1e-4 a SARIAF ray begins where theta_e = 0.02, inside the band
 where the thermal Faraday fit divides rounding noise by K_2(1/theta_e)
@@ -32,8 +49,12 @@ import torch
 
 from grtrans_tpu.api import Grtrans as JGrtrans
 from grtrans_tpu.io.binio import read_camera_bin as jread_camera_bin
+from grtrans_tpu.io.fitsio import read_fits as jread_fits
 from grtrans_tpu_torch.api import Grtrans
+from grtrans_tpu_torch.integrate import solvers as tsol
 from grtrans_tpu_torch.io.binio import read_camera_bin
+
+from test_torch_solvers import _expm_longdouble, _opacity
 
 torch.set_num_threads(1)   # the suite runs in parallel worker processes
 
@@ -58,11 +79,68 @@ CONFIGS = {
 }
 
 
+# configurations whose rays cross Faraday-thick cells, where grtrans_tpu's
+# matricant cancels (module docstring): their spectra, moments and
+# conversions are held against _jax_exact_render
+FARADAY_THICK = {"sariaf_hybrid_lsoda"}
+
+
+def _exact_O(K, dx):
+    """exp(-K dx) of every cell by extended-precision scaling and squaring
+    (test_torch_solvers): K (..., 7), dx (...) -> (4, 4, ...)."""
+    O = _expm_longdouble(-_opacity(K.reshape(-1, 7))
+                         * dx.reshape(-1)[:, None, None])
+    return np.moveaxis(O.astype(np.float64), 0, -1).reshape(
+        (4, 4) + dx.shape)
+
+
+def _jax_exact_O(a, rho, dx, dx64=None, with_bad=False):
+    """grtrans_tpu's _calc_O with every cell's O from _exact_O, called back
+    to the host from the traced program."""
+    import jax
+    import jax.numpy as jnp
+    assert not with_bad
+    args = jnp.broadcast_arrays(*a, *rho, dx)
+
+    def host(*cols):
+        cols = [np.asarray(c, np.float64) for c in cols]
+        return _exact_O(np.stack(cols[:7], -1), cols[7]).astype(
+            args[-1].dtype)
+
+    out = jax.ShapeDtypeStruct((4, 4) + args[-1].shape, args[-1].dtype)
+    return jax.pure_callback(host, out, *args, vmap_method="broadcast_all")
+
+
+def _jax_exact_render(kw):
+    """grtrans_tpu's render of kw with _jax_exact_O as its matricant.  JAX's
+    compiled programs and grtrans_tpu's render cache are cleared before,
+    so the render traces the patched _calc_O, and after, so that no later
+    grtrans_tpu call reuses it."""
+    import jax
+    from grtrans_tpu import orchestrator as jorch
+    from grtrans_tpu.integrate import solvers as jsol
+
+    def clear():
+        jax.clear_caches()
+        jorch._RENDER_CACHE.clear()
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsol, "_calc_O", _jax_exact_O)
+        clear()
+        try:
+            return JGrtrans(**kw).run()
+        finally:
+            clear()
+
+
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def pair(request):
+    """(name, the port's render, grtrans_tpu's, and grtrans_tpu's with its
+    matricant made exact on FARADAY_THICK, else the same render)."""
     kw = dict(COMMON, **CONFIGS[request.param])
-    return (request.param, Grtrans(**kw).run(device="cpu"),
-            JGrtrans(**kw).run())
+    ref = JGrtrans(**kw).run()
+    exact = _jax_exact_render(kw) if request.param in FARADAY_THICK else ref
+    return request.param, Grtrans(**kw).run(device="cpu"), ref, exact
 
 
 def _spec_close(ours, ref):
@@ -75,23 +153,28 @@ def _spec_close(ours, ref):
 
 
 def test_image_matches_jax(pair):
-    name, ours, ref = pair
+    """Against grtrans_tpu as it is and with its matricant made exact."""
+    name, ours, ref, exact = pair
     nvals = CONFIGS[name]["nvals"]
-    assert ours.ivals.shape == ref.ivals.shape == (64, nvals, 2)
     assert np.isfinite(ours.ivals).all()
-    np.testing.assert_array_equal(ours.ab, ref.ab)
-    np.testing.assert_array_equal(ours.freqs, ref.freqs)
-    rel_l1 = np.abs(ours.ivals - ref.ivals).sum() / np.abs(ref.ivals).sum()
-    print(f"{name}: I max {ours.ivals[:, 0].max(0)}, rel L1 {rel_l1:.3e}")
     assert ours.ivals[:, 0].max() > 1e-5      # a lit image, not 1e-30
-    assert rel_l1 <= 1e-8
-    rel_i = np.abs(ours.ivals[:, 0] - ref.ivals[:, 0]).sum() \
-        / ref.ivals[:, 0].sum()
-    assert rel_i <= 1e-9
+    for ref in (ref,) if exact is ref else (ref, exact):
+        assert ours.ivals.shape == ref.ivals.shape == (64, nvals, 2)
+        np.testing.assert_array_equal(ours.ab, ref.ab)
+        np.testing.assert_array_equal(ours.freqs, ref.freqs)
+        rel_l1 = np.abs(ours.ivals - ref.ivals).sum() \
+            / np.abs(ref.ivals).sum()
+        # DELO leaves negative I in thick pixels: |I| in the denominator
+        rel_i = np.abs(ours.ivals[:, 0] - ref.ivals[:, 0]).sum() \
+            / np.abs(ref.ivals[:, 0]).sum()
+        print(f"{name}: I max {ours.ivals[:, 0].max(0)}, rel L1 "
+              f"{rel_l1:.3e}, of I {rel_i:.3e}")
+        assert rel_l1 <= 1e-8
+        assert rel_i <= 1e-9
 
 
 def test_spectrum_polarization_and_centroid_match_jax(pair):
-    name, ours, ref = pair
+    name, ours, _, ref = pair
     _spec_close(ours.spec, ref.spec)
     assert (ours.da, ours.db) == (ref.da, ref.db)
     if CONFIGS[name]["nvals"] == 4:
@@ -112,7 +195,7 @@ def test_spectrum_polarization_and_centroid_match_jax(pair):
 
 
 def test_unit_conversions_and_binary_output_match_jax(pair, tmp_path):
-    name, ours, ref = pair
+    name, ours, _, ref = pair
     path = tmp_path / "cams.bin"
     ours.write_output(path, fmt="bin")
     ref.write_output(tmp_path / "ref.bin", fmt="bin")
@@ -128,8 +211,18 @@ def test_unit_conversions_and_binary_output_match_jax(pair, tmp_path):
                                       ours.ivals[:, :, i].astype(np.float32))
     for a, b in zip(read_camera_bin(path)[1], cams):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="fits"):
-        ours.write_output(tmp_path / "cams.fits", fmt="fits")
+    # FITS: the same cameras, and grtrans_tpu's header on each
+    ours.write_output(tmp_path / "cams.fits", fmt="fits")
+    ref.write_output(tmp_path / "ref.fits", fmt="fits")
+    ab, cams, keys, heads = jread_fits(tmp_path / "cams.fits",
+                                       with_headers=True)
+    _, _, ref_keys, ref_heads = jread_fits(tmp_path / "ref.fits",
+                                           with_headers=True)
+    np.testing.assert_array_equal(ab, ours.ab.astype(np.float32))
+    for i, cam in enumerate(cams):
+        np.testing.assert_array_equal(
+            cam, ours.ivals[:, :, i].T.ravel().astype(np.float32))
+    assert keys == ref_keys and heads == ref_heads and len(heads) == 2
 
     # conversions act on copies of the fixture's results
     mine, theirs = Grtrans(), JGrtrans()
@@ -159,33 +252,41 @@ def test_pixel_blocks_equal_the_plain_run(plain):
     np.testing.assert_allclose(blocks.spec, whole.spec, rtol=1e-12)
 
 
-def test_geodesic_reuse_over_an_mdot_scan_equals_the_plain_run(plain):
+def test_geodesic_reuse_over_an_mdot_scan_equals_the_plain_run(plain,
+                                                               tmp_path):
     """nmdot=3 renders three cameras per frequency set from one trace;
     SARIAF does not scale with mdot, so each equals the plain run, in the
-    order freq fastest, then mdot."""
+    order freq fastest, then mdot; also from a gdfile bundle, traced and
+    saved on the first run, loaded on the second."""
     from grtrans_tpu_torch.config import GrtransConfig
     from grtrans_tpu_torch.orchestrator import grtrans_run
     kw, whole = plain
     cfg = GrtransConfig(**dict(kw, nmdot=3, mdotmin=1e14, mdotmax=1e16))
+    gd = str(tmp_path / "geo.npz")
     for options in (dict(reuse_geo=True), dict(reuse_geo=True, chunk=24),
-                    dict()):
+                    dict(), dict(gdfile=gd), dict(gdfile=gd, chunk=24)):
         ivals, _, freqs = grtrans_run(cfg, device="cpu", **options)
         assert ivals.shape == (6, 64, 4) and len(freqs) == 2
         for cam in range(6):
             np.testing.assert_allclose(
                 ivals[cam].numpy(), whole.ivals[:, :, cam % 2], rtol=0.0,
                 atol=1e-12 * np.abs(whole.ivals).max())
-    with pytest.raises(NotImplementedError, match="gdfile"):
-        grtrans_run(cfg, device="cpu", gdfile="geo.npz")
 
 
 def test_default_uout_agrees_in_intensity():
     """uout = 1e-4: the rays start in grtrans_tpu's rho_V noise band (module
-    docstring), so only Stokes I is held."""
+    docstring), so only Stokes I is held.  At 1e11 Hz 913 of the 1984
+    valid cells have |rho| / |a| > 100, with |rho| dlam up to 2.3e3 rad:
+    there grtrans_tpu's matricant is up to 6.3e-6 off the
+    extended-precision expm and the port's 3.5e-13
+    (test_faraday_thick_cells_take_the_exact_matricant), and grtrans_tpu's
+    I spectrum is 6.2e-9 from the port's.  So the reference is
+    grtrans_tpu's render with its matricant made exact (_jax_exact_render;
+    measured: I spectrum 4.8e-12 from the port's)."""
     kw = dict(COMMON, **CONFIGS["sariaf_thermal_formal"])
     del kw["uout"]
     ours = Grtrans(**kw).run(device="cpu")
-    ref = JGrtrans(**kw).run()
+    ref = _jax_exact_render(kw)
     rel_i = np.abs(ours.ivals[:, 0] - ref.ivals[:, 0]).sum(0) \
         / ref.ivals[:, 0].sum(0)
     assert (rel_i <= 1e-9).all(), rel_i
@@ -224,19 +325,20 @@ def _grtrans_run(**options):
 
 
 UNPORTED = {
-    "mixed": lambda tmp: Grtrans(**_tiny(prec="mixed")).run(device="cpu"),
-    "gdfile": lambda tmp: _grtrans_run(gdfile=str(tmp / "geo.npz")),
-    "mesh": lambda tmp: _grtrans_run(mesh=object()),
-    "fits": lambda tmp: Grtrans(**_tiny()).run(device="cpu").write_output(
-        tmp / "cams.fits", fmt="fits"),
-    "HARM2D": lambda tmp: Grtrans(**_tiny(fname="HARM2D")).run(device="cpu"),
+    "mixed": (NotImplementedError,
+              lambda: Grtrans(**_tiny(prec="mixed")).run(device="cpu")),
+    "mesh": (NotImplementedError, lambda: _grtrans_run(mesh=object())),
+    # a fluid name that neither package knows, as grtrans_tpu raises it
+    "HARM2D": (ValueError,
+               lambda: Grtrans(**_tiny(fname="HARM2D")).run(device="cpu")),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_options_raise_by_name(name, tmp_path):
-    with pytest.raises(NotImplementedError, match=name):
-        UNPORTED[name](tmp_path)
+def test_unported_options_raise_by_name(name):
+    error, call = UNPORTED[name]
+    with pytest.raises(error, match=name):
+        call()
 
 
 @pytest.mark.parametrize("change,columns", [
@@ -257,3 +359,58 @@ def test_ported_options_render(change, columns):
     assert ours.ivals.shape == ref.ivals.shape
     np.testing.assert_allclose(ours.ivals[:, 0], ref.ivals[:, 0], rtol=1e-7,
                                atol=1e-9 * np.abs(ref.ivals[:, 0]).max())
+
+
+@pytest.mark.parametrize("name,uout", [("sariaf_hybrid_lsoda", 0.0025),
+                                       ("sariaf_thermal_formal", None)])
+def test_faraday_thick_cells_take_the_exact_matricant(name, uout):
+    """The evidence behind FARADAY_THICK and
+    test_default_uout_agrees_in_intensity: on the 1e11 Hz camera's cells
+    with |rho| / |a| > 100, the port's O is within 1e-12 of the
+    extended-precision expm (of max|O|) and grtrans_tpu's, on the same
+    coefficients, is not (more than 1e-9)."""
+    from grtrans_tpu.integrate import solvers as jsol
+    from grtrans_tpu_torch import driver
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.geodesics import camera
+    from grtrans_tpu_torch.orchestrator import _source_params, trace_camera
+
+    kw = dict(COMMON, **CONFIGS[name])
+    if uout is None:
+        del kw["uout"]
+    cfg = GrtransConfig(**kw)
+    a, mu0 = cfg.spin, cfg.mumin
+    cam = camera.make_camera(a, mu0, *cfg.gridvals, *cfg.nn[:2],
+                             device="cpu")
+    geo = trace_camera(cfg, cam, mu0)
+    model = load_fluid_model(cfg.fname, device="cpu", **cfg.fargs)
+    fv = model.vals(geo.x, geo.k, a)
+    sp = _source_params(cfg, float(cfg.mdotmin))
+    _, dbg = driver.render_rays(geo, fv, model.convert(fv, sp), cfg.ename,
+                                [cfg.fmin], mu0, cam.alpha, cam.beta, a,
+                                cfg.mbh, sp, iname=cfg.iname, debug=True)
+    K = dbg["K_0"].numpy()
+    ok = (dbg["ok"][:, 1:] & dbg["ok"][:, :-1]).numpy()
+    Kc = (0.5 * (K[:, 1:] + K[:, :-1]))[ok]
+    dl = np.diff(dbg["lam"].numpy(), axis=-1)[ok]
+    ratio = np.linalg.norm(Kc[:, 4:], axis=-1) \
+        / np.maximum(np.linalg.norm(Kc[:, 1:4], axis=-1), 1e-300)
+    thick = ratio > 1e2
+    Kc, dl = Kc[thick], dl[thick]
+    ref = _exact_O(Kc, dl)
+    kt = torch.tensor(Kc)
+    ours = tsol._calc_O(tuple(kt[:, :4].T), tuple(kt[:, 4:].T),
+                        torch.tensor(dl))
+    theirs = np.asarray(jsol._calc_O(tuple(Kc[:, :4].T), tuple(Kc[:, 4:].T),
+                                     dl))
+    scale = np.abs(ref).max((0, 1))
+    err_ours = (np.abs(ours.numpy() - ref).max((0, 1)) / scale).max()
+    err_theirs = (np.abs(theirs - ref).max((0, 1)) / scale).max()
+    print(f"{name}: {thick.sum()} of {ok.sum()} cells with |rho|/|a| > 100 "
+          f"(max {ratio.max():.3g}, |rho| dlam up to "
+          f"{(np.linalg.norm(Kc[:, 4:], axis=-1) * dl).max():.3g} rad); "
+          f"O off the exact matricant: port {err_ours:.2e}, grtrans_tpu "
+          f"{err_theirs:.2e}")
+    assert thick.sum() > 0
+    assert err_ours <= 1e-12 < 1e-9 < err_theirs

@@ -418,3 +418,83 @@ def test_quad_gather_tiled_kernel_at_the_2d_table_shapes(dev, dtype, ns, nc,
     assert (out - ref).abs().max().item() <= TOL[dtype] * scale
     forced = qg.quad_gather(table, idx, w, nc, nf, generic=True)
     assert (forced - ref).abs().max().item() <= TOL[dtype] * scale
+
+
+def _flagship_files(tmp_path, nn=(16, 16, 64)):
+    """The FFJET flagship's dump, namelists and files.in under tmp_path."""
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.io import namelist
+    from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
+
+    dfile = tmp_path / "ffjet.bin"
+    write_ffjet_dump(dfile, nx=32)
+    cfg = GrtransConfig(
+        fname="FFJET", ename="POLSYNCHPL", nvals=4, spin=0.998, nn=nn,
+        uout=0.01, mbh=3.4e9, mumin=0.906, mumax=0.906, fmin=3.45e11,
+        fmax=3.45e11, gridvals=(-40.0, 20.0, -20.0, 40.0), iname="formal",
+        fargs=dict(dfile=str(dfile), ntscl=2.0, nrscl=70.0))
+    namelist.write_inputs(cfg, tmp_path / "inputs.in")
+    namelist.write_files_in(tmp_path / "inputs.in", tmp_path / "cams.bin",
+                            tmp_path / "files.in")
+    return cfg
+
+
+@pytest.mark.cuda
+def test_cli_on_the_card_writes_the_render(dev, tmp_path):
+    """main() with no --device renders on the card: the binary holds the
+    float32 of Grtrans.run(device="cuda"), and quad_gather launched."""
+    from grtrans_tpu_torch.__main__ import main
+    from grtrans_tpu_torch.api import Grtrans
+    from grtrans_tpu_torch.io.binio import read_camera_bin
+
+    cfg = _flagship_files(tmp_path)
+    before = qg.quad_gather.launches
+    assert main([str(tmp_path / "files.in")]) == 0
+    assert qg.quad_gather.launches > before
+    x = Grtrans()
+    x.cfg = cfg
+    x.run(device="cuda")
+    _, cams, _ = read_camera_bin(tmp_path / "cams.bin")
+    np.testing.assert_array_equal(cams[0],
+                                  x.ivals[:, :, 0].astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 100])
+def test_gdfile_hit_on_the_card_equals_a_fresh_trace(dev, tmp_path, chunk):
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+
+    cfg = _flagship_files(tmp_path)
+    gd = str(tmp_path / "geo.npz")
+    fresh, _, _ = grtrans_run(cfg, device=dev, chunk=chunk)
+    saved, _, _ = grtrans_run(cfg, device=dev, chunk=chunk, gdfile=gd)
+    loaded, _, _ = grtrans_run(cfg, device=dev, chunk=chunk, gdfile=gd)
+    assert loaded.device.type == "cuda"
+    assert torch.equal(saved, loaded)
+    torch.testing.assert_close(loaded, fresh, rtol=0.0,
+                               atol=1e-12 * fresh.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_pgriter_through_a_loaded_snapshot_on_the_card(dev):
+    """An mdot fit on a small HARM3D dump: no model load, one
+    quad_gather_rows launch a render, and the fit converges."""
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.testing import grmhd_dump
+    from grtrans_tpu_torch.tools import pgriter
+
+    cfg = GrtransConfig(
+        fname="HARM3D", ename="POLSYNCHTH", nvals=4, spin=grmhd_dump.A,
+        nn=(16, 16, 64), uout=0.04, mbh=4.3e6, mumin=0.5, mumax=0.5,
+        fmin=2.3e11, fmax=2.3e11, iname="formal", gmin=10.0, muval=0.25,
+        gridvals=(-15.0, 15.0, -15.0, 15.0))
+    model = load_fluid_model("HARM3D", device=dev,
+                             dump=grmhd_dump.harm3d_dump(32, 24, 16))
+    target, _ = pgriter.flux_at(cfg, 6e15, model=model, device=dev)
+    before = qg.quad_gather_rows.launches
+    fitted, flux, hist = pgriter.fit_flux(cfg, target, 4e15, model=model,
+                                          device=dev)
+    assert qg.quad_gather_rows.launches - before == len(hist)
+    assert abs(np.log(flux / target)) < 1e-3
+    assert abs(np.log(fitted / 6e15)) < 0.05

@@ -67,8 +67,10 @@ def test_image_is_a_polarized_jet(renders):
 
 
 def test_registry_load_and_unported_options(tmp_path):
-    """grtrans_run loads FFJET by name from cfg.fargs, and refuses what the
-    port does not implement instead of rendering something else."""
+    """grtrans_run loads FFJET by name from cfg.fargs, refuses what the
+    port does not implement instead of rendering something else, and
+    raises ValueError for a fluid name neither package knows; a gdfile
+    bundle renders the image of a fresh trace."""
     dfile = tmp_path / "ffjet.bin"
     write_ffjet_dump(dfile, nx=32)
     cfg = convert.config_from_jax(JConfig(**flagship_kwargs(dfile,
@@ -77,14 +79,17 @@ def test_registry_load_and_unported_options(tmp_path):
     model = convert.ffjet_from_arrays(*load_ffjet_file(dfile), device="cpu")
     preloaded, _, _ = trun(cfg, model, device="cpu")
     assert torch.equal(by_name, preloaded)
-    for change in (dict(prec="mixed"), dict(fname="RIAF"),
-                   dict(fname="HARM2D"), dict(fname="KORALRAD")):
-        with pytest.raises(NotImplementedError):
-            trun(dataclasses.replace(cfg, **change), device="cpu")
-    for option in (dict(gdfile=str(tmp_path / "geo.npz")),
-                   dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match=next(iter(option))):
-            trun(cfg, model, device="cpu", **option)
+    with pytest.raises(NotImplementedError, match="mixed"):
+        trun(dataclasses.replace(cfg, prec="mixed"), device="cpu")
+    for name in ("RIAF", "HARM2D", "KORALRAD"):
+        with pytest.raises(ValueError, match=f"unknown fluid model '{name}'"):
+            trun(dataclasses.replace(cfg, fname=name), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        trun(cfg, model, device="cpu", mesh=object())
+    for _ in range(2):                  # traces and saves, then loads
+        cached, _, _ = trun(cfg, model, device="cpu",
+                            gdfile=str(tmp_path / "geo.npz"))
+        assert torch.equal(cached, preloaded)
     # the diagnostic channels ride behind the same Stokes columns
     extra, _, _ = trun(dataclasses.replace(cfg, extra=1), model, device="cpu")
     assert extra.shape == (1, 36, 4 + 19)
@@ -109,9 +114,17 @@ def test_pixel_subrange_is_a_slice_of_the_camera(tmp_path):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, the command line's __main__ too."""
     code = ("import importlib, pkgutil, sys, grtrans_tpu_torch as p\n"
-            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-            "    importlib.import_module(m.name)\n"
+            "names = [m.name for m in\n"
+            "         pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "want = {'__main__', 'io.namelist', 'io.fitsio',\n"
+            "        'geodesics.cache', 'tools.geodebug', 'tools.pgriter',\n"
+            "        'ops.elliptic', 'ops.interp', 'ops.quadrature'}\n"
+            "missing = {p.__name__ + '.' + w for w in want} - set(names)\n"
+            "assert not missing, missing\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'grtrans_tpu')]\n"
             "assert not bad, bad\n")
