@@ -94,7 +94,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      re-integrated there from the dump, equal to the image's pixel;
  19. pgriter: a secant fit of mdot to the flux of a render at 6e13 g/s,
      from 4e13, on the HARM3D snapshot of phase 12, loaded once; one
-     quad_gather_rows launch a render.
+     quad_gather_rows launch a render;
+ 20. the multi-GPU paths on this one card: (a) the flagship through
+     grtrans_run(mesh=pixel_mesh()) on a world of one over NCCL, equal to
+     phase 4's image, launches counted, a warm frame timed beside phase
+     4's; (b) the snapshot of phase 12 cut into 4 theta slabs of 32 rows,
+     each with the row after it, sampled by grmhd3d.slab_sample: the
+     summed columns equal to the whole table's gather, a full frame
+     through the slabs equal to phase 12's image with one quad_gather_rows
+     launch a slab counted, each slab's kernel timed on the frame's queries
+     beside the whole table's and its bound; (c) sample_sharded on the
+     world of one equal to vals.
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -127,6 +137,7 @@ HARM2D_NX = SNAPSHOT_NX[:2]           # its r-theta grid, for the 2-D models
 SNAPSHOT_MDOT = 4e13                  # g/s: ~1 Jy at 230 GHz from Sgr A*
 SGRA_DISTANCE_CM = 8.178e3 * 3.0857e18
 ROWS_TOL = {torch.float64: 1e-14, torch.float32: 2e-6}
+MESH_SLABS = 4                        # virtual theta slabs of phase 20
 
 
 def riaf_kwargs(nn, iname):
@@ -574,7 +585,8 @@ def main():
 
 def ffjet_phases(dev, qg):
     """Phases 4 and 5.  Returns (counts of the counted render, times of
-    the kernel on that frame's index stream)."""
+    the kernel on that frame's index stream, the flagship: its config,
+    model, image and warm frame time)."""
     from grtrans_tpu_torch import convert, driver
     from grtrans_tpu_torch.config import GrtransConfig
     from grtrans_tpu_torch.fluid import ffjet
@@ -681,7 +693,8 @@ def ffjet_phases(dev, qg):
               f"(bar {CPU_GPU_RTOL})")
         if not rel <= CPU_GPU_RTOL:
             raise AssertionError(f"card vs CPU rel L1 {rel}")
-    return counts, frame_times
+    return counts, frame_times, dict(cfg=cfg, model=model, ivals=ivals,
+                                     warm_ms=warm * 1e3)
 
 
 def counted_run(qg, dev, name, kw, model=None):
@@ -860,7 +873,8 @@ def card_vs_cpu_phase():
 def snapshot_phases(dev, qg):
     """Phases 12 and 13.  Returns (counts of the fast-light frame, counts
     of the slow-light frame, times of quad_gather_rows on each frame's own
-    index stream)."""
+    index stream, the model back on its one slice, the fast-light
+    frame's image)."""
     from grtrans_tpu_torch import constants as pc
     from grtrans_tpu_torch import driver
     from grtrans_tpu_torch.api import Grtrans
@@ -1033,7 +1047,7 @@ def snapshot_phases(dev, qg):
         raise AssertionError(f"camera_delay: spread {spread} M, min "
                              f"{delay.min().item()}, card vs CPU {rel}")
     model._store(base)
-    return fast_counts, slow_counts, frame_times, slow_times, model
+    return fast_counts, slow_counts, frame_times, slow_times, model, x.ivals
 
 
 def snapshot_card_vs_cpu_phase():
@@ -1317,6 +1331,165 @@ def pgriter_phase(dev, qg, model):
     return counts
 
 
+class SlabSampled:
+    """A snapshot model whose vals() samples its stacked grid cut into S
+    theta slabs, each with the row after it, on this one card: the
+    columns of each slab by grmhd3d.slab_sample (one quad_gather_rows
+    launch), summed; every other attribute is the model's."""
+
+    def __init__(self, model, slabs):
+        from grtrans_tpu_torch.fluid import grmhd3d
+        grid, self.names = model.stacked_grid()
+        nx2 = grid.shape[2]
+        self.model, self.B = model, nx2 // slabs
+        self.tables = [grmhd3d.slab_table(
+            grid[:, :, lo:lo + self.B], grid[:, :, min(lo + self.B, nx2 - 1)])
+            for lo in range(0, nx2, self.B)]
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def columns(self, q):
+        from grtrans_tpu_torch.fluid import grmhd3d
+        return sum(grmhd3d.slab_sample(self.model, q, table, s * self.B,
+                                       self.B)
+                   for s, table in enumerate(self.tables))
+
+    def vals(self, x, k, a, time=0.0):
+        q = self.model._query(x, a, time=time)
+        return self.model._assemble(self.columns(q), self.names, q, a)
+
+
+def max_rel_finite(ours, ref):
+    """max|ours - ref| / max|ref| over the finite entries of ref, which
+    must be those of ours."""
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(ours), fin):
+        raise AssertionError("finite in one and not in the other")
+    return ((ours - ref)[fin].abs().max() / ref[fin].abs().max()).item()
+
+
+def mesh_phase(dev, qg, flagship, model, snapshot_image, whole_rows):
+    """Phase 20: the multi-GPU paths on this one card.  Returns (counts of
+    the flagship under the mesh, counts of the frame through the virtual
+    slabs, the per-slab kernel times)."""
+    import torch.distributed as dist
+
+    from grtrans_tpu_torch.api import Grtrans
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid import grmhd3d
+    from grtrans_tpu_torch.geodesics import camera, geokerr
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    from grtrans_tpu_torch.parallel import sharding
+
+    # (a) the flagship through grtrans_run(mesh=): a world of one over NCCL
+    t0 = time.perf_counter()
+    mesh = sharding.pixel_mesh(device_type=dev.type)
+    print(f"mesh {mesh} over {dist.get_backend(mesh.get_group(0))} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    try:
+        cfg, tmodel = flagship["cfg"], flagship["model"]
+        reset_counts(qg)
+        ivals, _, _ = grtrans_run(cfg, tmodel, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        mesh_counts = read_counts(qg)
+        ref = flagship["ivals"]
+        rel = ((ivals - ref).abs().sum() / ref.abs().sum()).item()
+        t0 = time.perf_counter()
+        grtrans_run(cfg, tmodel, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) * 1e3
+        print(f"FFJET {NN[0]}x{NN[1]}x{NN[2]} f64 through grtrans_run(mesh=) "
+              f"on a world of one: rel L1 against phase 4 {rel:.3e} (bar "
+              f"1e-12); launches {mesh_counts}; warm frame {warm:.1f} ms "
+              f"(phase 4: {flagship['warm_ms']:.1f} ms)")
+        if not (rel <= 1e-12 and mesh_counts["quad_gather"] > 0):
+            raise AssertionError(f"mesh flagship: rel L1 {rel}, launches "
+                                 f"{mesh_counts}")
+
+        # (b) the snapshot of phase 12 on S virtual theta slabs
+        slabs = SlabSampled(model, MESH_SLABS)
+        kw = snapshot_kwargs("HARM3D", NN)
+        gcfg = GrtransConfig(**kw)
+        a, mu0 = gcfg.spin, gcfg.mumin
+        cam = camera.make_camera(a, mu0, *gcfg.gridvals, NN[0], NN[1],
+                                 device=dev)
+        geo = geokerr.trace(a, mu0, cam.alpha, cam.beta, cam.l, cam.q2,
+                            cam.sm, cam.u0, NN[2], uout=gcfg.uout,
+                            phi0=gcfg.phi0)
+        q = model._query(geo.x, a)
+        table, names = model._stacked_fields()
+        nx2, nx3 = model.uniqx2.shape[0], model.uniqx3.shape[0]
+        whole = model._gather_cols(table, table.shape[0], nx2, nx3, q,
+                                   len(names))
+        rel_cols = max_rel_finite(slabs.columns(q), whole)
+        print(f"HARM3D {tuple(table.shape)} on {MESH_SLABS} slabs of "
+              f"{slabs.B} theta rows and a halo row "
+              f"({tuple(slabs.tables[0].shape)} each): summed slab columns "
+              f"against the whole gather max rel {rel_cols:.3e} (bar "
+              f"{ROWS_TOL[torch.float64]:g})")
+        if not rel_cols <= ROWS_TOL[torch.float64]:
+            raise AssertionError(f"slab columns: {rel_cols}")
+        reset_counts(qg)
+        x = Grtrans(**kw).run(model=slabs)
+        slab_counts = read_counts(qg)
+        rel = (np.abs(x.ivals - snapshot_image).sum()
+               / np.abs(snapshot_image).sum())
+        t0 = time.perf_counter()
+        Grtrans(**kw).run(model=slabs)
+        warm = (time.perf_counter() - t0) * 1e3
+        print(f"HARM3D {NN[0]}x{NN[1]}x{NN[2]} through the slabs: rel L1 "
+              f"against phase 12 {rel:.3e} (bar 1e-12); launches "
+              f"{slab_counts}; warm frame {warm:.1f} ms")
+        if not (rel <= 1e-12
+                and slab_counts["quad_gather_rows"] == MESH_SLABS):
+            raise AssertionError(f"slab render: rel L1 {rel}, launches "
+                                 f"{slab_counts}")
+        # each slab's launch on this frame's queries, beside the whole
+        # table's (phase 12)
+        frame_args = []
+        wrapper = grmhd3d.quad_gather_rows
+
+        def keep(*args):
+            frame_args.append(args)
+            return wrapper(*args)
+
+        grmhd3d.quad_gather_rows = keep
+        try:
+            slabs.columns(q)
+        finally:
+            grmhd3d.quad_gather_rows = wrapper
+        per_slab = []
+        for s, (tbl, idx, w, nc, nf) in enumerate(frame_args):
+            t = check_rows(qg, f"slab {s} of {MESH_SLABS}, the HARM3D frame's "
+                           "queries", tbl, idx, w, nc, nf)
+            per_slab.append({k: t[k] for k in ("kernel", "plain", "library",
+                                               "bound_ms", "bound_by",
+                                               "max_abs_err")})
+        print(f"per-slab quad_gather_rows ms "
+              + ", ".join(f"{t['kernel']:.4f} (bound {t['bound_ms']:.4f})"
+                          for t in per_slab)
+              + f"; the whole table {whole_rows['kernel']:.4f} (bound "
+              f"{whole_rows['bound_ms']:.4f})")
+        del frame_args, slabs, whole
+
+        # (c) sample_sharded on the world of one: the slab is the grid
+        grid, _ = model.stacked_grid()
+        fv = grmhd3d.sample_sharded(model, geo.x, a, grid, mesh)
+        ref = model.vals(geo.x, geo.k, a)
+        rel = max(max_rel_finite(getattr(fv, f), getattr(ref, f))
+                  for f in ("rho", "p", "bmag", "u", "b"))
+        print(f"sample_sharded on a world of one against vals: max rel "
+              f"{rel:.3e} (bar {ROWS_TOL[torch.float64]:g})")
+        if not rel <= ROWS_TOL[torch.float64]:
+            raise AssertionError(f"sample_sharded: {rel}")
+    finally:
+        dist.destroy_process_group()
+    return mesh_counts, slab_counts, dict(
+        whole_ms=whole_rows["kernel"], whole_bound_ms=whole_rows["bound_ms"],
+        per_slab=per_slab)
+
+
 def by_path(paths, key):
     return {name: c[key] for name, c in paths.items()}
 
@@ -1374,7 +1547,7 @@ def run(dev):
         shapes[name] = dict(times, max_abs_err=err)
     check_error_flag(qg, dev)
 
-    ffjet_counts, frame_times = ffjet_phases(dev, qg)
+    ffjet_counts, frame_times, flagship = ffjet_phases(dev, qg)
     shapes["ffjet f64, frame's rows"] = frame_times
     paths = {"ffjet_flagship": ffjet_counts,
              "riaf_hybrid_lsoda": riaf_phases(dev, qg),
@@ -1383,7 +1556,7 @@ def run(dev):
     card_vs_cpu_phase()
     shapes.update(rows_phase(dev, qg))
     (paths["harm3d_snapshot"], paths["harm3d_slow_light"], frame_times,
-     slow_times, snapshot) = snapshot_phases(dev, qg)
+     slow_times, snapshot, snapshot_image) = snapshot_phases(dev, qg)
     shapes["snapshot R=4 f64, frame's rows"] = frame_times
     shapes["three slices R=8 f64, slow-light frame's rows"] = slow_times
     snapshot_card_vs_cpu_phase()
@@ -1391,7 +1564,9 @@ def run(dev):
         = harm2d_phase(dev, qg)
     paths.update(file_phases(dev, qg))
     paths["pgriter_harm3d"] = pgriter_phase(dev, qg, snapshot)
-    del snapshot
+    paths["mesh_ffjet"], paths["slab_harm3d"], slabs = mesh_phase(
+        dev, qg, flagship, snapshot, snapshot_image, frame_times)
+    del snapshot, flagship
 
     main = shapes["ffjet f64"]
     wide = shapes["phatdisk f64"]
@@ -1424,7 +1599,7 @@ def run(dev):
         "replaces": "grtrans_tpu/fluid/grmhd3d.py:212",
         "launches": sum(by_path(paths, "quad_gather_rows").values()),
         "launches_by_path": by_path(paths, "quad_gather_rows"),
-        "launches_by_kernel": rows_by_kernel,
+        "launches_by_kernel": rows_by_kernel, "slabs": slabs,
         "max_abs_err": rows["max_abs_err"], "ms": rows["kernel"],
         "plain_ms": rows["plain"], "bound_ms": rows["bound_ms"],
         "bound_by": rows["bound_by"], "library_ms": rows["library"],

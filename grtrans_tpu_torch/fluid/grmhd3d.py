@@ -19,18 +19,26 @@ harm3d_vals :107-330 and its clones):
 The lookup is one launch of quad_gather_rows on the phi-pair-packed table
 (NS rows of 2 x nf: a zone and its phi + 1 neighbour): 4 rows a sample,
 8 with the two time slices, whose blend is folded into the weights.
+
+A snapshot too large to replicate shards over theta (`stacked_grid`,
+parallel/sharding.py `snapshot_shard_spec`): `sample_sharded` samples it
+with one launch on each process's halo-extended slab (`slab_sample`).
 """
 
 import math
+import weakref
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from grtrans_tpu_torch.fluid.base import FluidVars
 from grtrans_tpu_torch.fluid.harm import four_vectors, x2_of_theta
 from grtrans_tpu_torch.geometry import kerr
 from grtrans_tpu_torch.ops.intcast import to_int32, trunc_clip
 from grtrans_tpu_torch.ops.quad_gather import quad_gather_rows
+from grtrans_tpu_torch.parallel import sharding
 
 FIELDS = ("rho", "p", "u0", "vrl", "vtl", "vpl", "b0", "br", "bth", "bph")
 
@@ -77,6 +85,7 @@ class Grmhd3D(nn.Module):
     nt_slices = 1
     tstep = 1.0
     toffset = 0.0          # simulation time of slice 0
+    _slab_of = None        # weak reference to the slab of _slab_table
     # theta-fraction space: physical theta (harm3d_vals:189-207) or
     # simulation x2 (needed when theta(x2) also depends on x1: MMKS)
     interp_td_in_x2 = False
@@ -99,7 +108,7 @@ class Grmhd3D(nn.Module):
                   .to(self.device) for k in FIELDS}
         self.extra3 = {}
         self.nt_slices = 1
-        self._fstack_key = None
+        self._fstack_key = self._slab_of = None
 
     def append_slice(self, arrs):
         """Push a later time slice (advance_harm3d_timestep /
@@ -108,13 +117,17 @@ class Grmhd3D(nn.Module):
             new = torch.as_tensor(arrs[k], dtype=torch.float64)[None]
             self.f[k] = torch.cat([self.f[k], new.to(self.device)], dim=0)
         self.nt_slices = int(self.f["rho"].shape[0])
-        self._fstack_key = None
+        self._fstack_key = self._slab_of = None
+
+    def stacked_names(self):
+        """Field-column order of the packed stack (the gather's layout)."""
+        return list(FIELDS) + sorted(self.extra3)
 
     def _stacked_fields(self, dtype=torch.float64):
         """All FIELDS + extra3 grids stacked minor-most, phi-pair packed
         and flattened to (nt * nx1*nx2*nx3, 2 nf).  Cached; invalidated by
         _store / append_slice."""
-        names = list(FIELDS) + sorted(self.extra3)
+        names = self.stacked_names()
         nt = self.nt_slices
         key = (nt, tuple(names), dtype)
         if self._fstack_key != key:
@@ -194,20 +207,49 @@ class Grmhd3D(nn.Module):
         return dict(r=r, th=th, lx1=lx1, lx2=lx2, lx3=lx3, ws=ws, pdc=pd,
                     tind=tind, ttd=ttd, damp=damp, outside=outside)
 
-    def _gather_cols(self, table, NS, nx2, nx3, q, nf):
+    def _gather_cols(self, table, NS, nx2, nx3, q, nf, own=None):
         """The trilinear sample of every field: one quad_gather_rows launch
         of 4 rows a sample (8 with the time blend) on the (nt * NS, 2 nf)
-        table."""
+        table.  own (bool, the queries' shape): where False the sample
+        weighs exactly 0 (slab_sample: its indices were clamped into a slab
+        that does not hold it, and its weights may be NaN past a ray's
+        end)."""
         lx1, lx2, lx3 = q["lx1"], q["lx2"], q["lx3"]
         lo = (lx1 * nx2 + lx2) * nx3 + lx3
         hi = ((lx1 + 1) * nx2 + lx2) * nx3 + lx3
         idxs = [lo, lo + nx3, hi, hi + nx3]
-        ws = list(q["ws"])
+        ws, pd = list(q["ws"]), q["pdc"]
         if q["tind"] is not None:
             off, ttd = q["tind"] * NS, q["ttd"]
             idxs = [off + i for i in idxs] + [off + NS + i for i in idxs]
             ws = [w * (1 - ttd) for w in ws] + [w * ttd for w in ws]
-        return trilinear_rows(table, idxs, ws, q["pdc"], nf)
+        if own is not None:
+            ws = [torch.where(own, w, 0.0) for w in ws]
+            pd = torch.where(own, pd, 0.0)
+        return trilinear_rows(table, idxs, ws, pd, nf)
+
+    def stacked_grid(self, dtype=torch.float64):
+        """The phi-pair-packed field stack in grid shape (nt, nx1, nx2,
+        nx3, 2 nf) (a view of the cached table) and its column names: the
+        array to shard over theta, axis 2 (sharding.snapshot_shard_spec),
+        for snapshots too large to replicate."""
+        table, names = self._stacked_fields(dtype)
+        shape = (self.nt_slices, self.uniqx1.shape[0], self.uniqx2.shape[0],
+                 self.uniqx3.shape[0], table.shape[-1])
+        return table.view(shape), names
+
+    def _slab_table(self, grid_block, mesh):
+        """slab_table of this process's theta slab and the row after it,
+        which halo_exchange_theta (a collective) brings from the next
+        process: built once for a slab and kept while the caller holds that
+        slab unchanged; _store / append_slice drop it."""
+        held = self._slab_of is not None and self._slab_of() is grid_block
+        if not (held and self._slab_version == grid_block._version):
+            _, hi = sharding.halo_exchange_theta(grid_block, mesh, axis=2)
+            self._slab = slab_table(grid_block, hi)
+            self._slab_of = weakref.ref(grid_block)
+            self._slab_version = grid_block._version
+        return self._slab
 
     def vals(self, x, k, a, time=0.0):
         nx2 = self.uniqx2.shape[0]
@@ -232,3 +274,70 @@ class Grmhd3D(nn.Module):
         kela = extra.pop("kela", None)
         return FluidVars(rho=rho, p=p, bmag=bmag * damp, u=u, b=b, rho2=rho,
                          kela=kela, extra=extra or None)
+
+
+def slab_table(block, hi_row):
+    """A theta slab of stacked_grid, (nt, nx1, B, nx3, 2 nf), and the theta
+    row after it, (nt, nx1, nx3, 2 nf) -> the (nt * nx1 (B + 1) nx3, 2 nf)
+    table that slab_sample gathers from (a copy)."""
+    ext = torch.cat([block, hi_row.unsqueeze(2)], dim=2)
+    return ext.reshape(-1, block.shape[-1])
+
+
+def slab_sample(model, q, table, start, B):
+    """The columns of the queries whose cell starts in the theta slab
+    [start, start + B) of the grid, by one quad_gather_rows launch on the
+    slab's table (slab_table: B rows and the row after), zero where
+    another slab holds the cell.  q: model._query of every query.  Returns
+    (..., nf), equal to model._gather_cols on the whole table where the
+    slab holds the cell; summed over the slabs of a grid, the whole
+    gather."""
+    nx1, nx3 = model.uniqx1.shape[0], model.uniqx3.shape[0]
+    NS = nx1 * (B + 1) * nx3
+    if table.shape[0] != model.nt_slices * NS:
+        raise ValueError(f"slab table of {table.shape[0]} rows: expected "
+                         f"{model.nt_slices} x {nx1} x {B + 1} x {nx3}")
+    lx2 = q["lx2"]
+    own = (lx2 >= start) & (lx2 < start + B)
+    local = dict(q, lx2=(lx2 - start).clamp(0, B - 1))
+    return model._gather_cols(table, NS, B + 1, nx3, local,
+                              table.shape[-1] // 2, own=own)
+
+
+def sample_sharded(model, x, a, grid_block, mesh, time=0.0):
+    """FluidVars of this process's pixel block x (npix_local, npts, 4) from
+    a snapshot sharded over theta (grtrans_tpu's sample_sharded; call on
+    every process of the mesh together).
+
+    grid_block: this process's theta slab (nt, nx1, B, nx3, 2 nf) of
+    model.stacked_grid, a tensor or its DTensor (distribute_tensor with
+    snapshot_shard_spec; the mesh size must divide nx2).  Each process
+    takes the theta row after its slab from the next process (once a slab,
+    _slab_table), gathers every process's query coordinates, samples the
+    queries whose cell starts in its slab (slab_sample), and a
+    reduce-scatter sums the disjoint parts and hands each process its own
+    pixel block, whose FluidVars it assembles.  A query is summed on one
+    process and is 0 on the others, so the result is the replicated
+    sample's."""
+    if isinstance(grid_block, DTensor):
+        grid_block = grid_block.to_local()
+    B = grid_block.shape[2]
+    if B * mesh.size() != model.uniqx2.shape[0]:
+        raise ValueError(f"a slab of {B} theta rows on each of {mesh.size()} "
+                         f"processes: the grid has {model.uniqx2.shape[0]}")
+    table = model._slab_table(grid_block, mesh)
+    q = model._query(sharding.gather_pixels(mesh, x), a, time=time)
+    cols = slab_sample(model, q, table, mesh.get_local_rank() * B, B)
+    own = cols.new_empty((x.shape[0],) + cols.shape[1:])
+    dist.reduce_scatter_tensor(own, cols, group=mesh.get_group(0))
+    lo = mesh.get_local_rank() * x.shape[0]
+    q_own = {k: _pixel_rows(v, lo, x.shape[0]) for k, v in q.items()}
+    return model._assemble(own, model.stacked_names(), q_own, a)
+
+
+def _pixel_rows(v, lo, n):
+    """Rows [lo, lo + n) of a query-geometry entry (tensors, or a tuple of
+    them, or None)."""
+    if isinstance(v, tuple):
+        return tuple(w[lo:lo + n] for w in v)
+    return None if v is None else v[lo:lo + n]

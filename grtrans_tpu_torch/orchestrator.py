@@ -1,5 +1,6 @@
-"""Whole-run orchestration on one device: cameras over (mu, time, mdot,
-freq) (reference pgrtrans.f90 grtrans_main, :12-245).
+"""Whole-run orchestration: cameras over (mu, time, mdot, freq) (reference
+pgrtrans.f90 grtrans_main, :12-245), on one device or, with mesh=, each
+process of a device mesh rendering its block of every camera's pixels.
 
 ivals has shape (ncams, npix, nvals) with the camera index running
 fastest over freq, then mdot, then time, then mu (pgrtrans.f90:198-211).
@@ -8,6 +9,7 @@ fastest over freq, then mdot, then time, then mu (pgrtrans.f90:198-211).
 import time
 
 import torch
+import torch.distributed as dist
 
 from grtrans_tpu_torch import driver
 from grtrans_tpu_torch.fluid.base import (CONST, TAIL, SourceParams,
@@ -16,6 +18,7 @@ from grtrans_tpu_torch.geodesics import cache as geo_cache
 from grtrans_tpu_torch.geodesics import camera as cam_mod
 from grtrans_tpu_torch.geodesics import geokerr
 from grtrans_tpu_torch.geodesics.geokerr import GeodesicBundle
+from grtrans_tpu_torch.parallel import sharding
 
 
 def _source_params(cfg, mdot):
@@ -46,7 +49,7 @@ def trace_camera(cfg, cam, mu0, blk=slice(None)):
 
 
 def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
-                gdfile=None, verbose=False, device_output=False,
+                gdfile=None, verbose=False, device_output=False, mesh=None,
                 **unported):
     """Render every camera of `cfg` on `device`.
 
@@ -84,7 +87,22 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
     (mu, time, mdot) render's (nfreq, npix, nvals) tensor instead, in
     camera order, without the concatenation: grtrans_tpu's option, which
     there keeps the images off the host; here the default already leaves
-    them on `device` unsynchronised, so it changes only the container."""
+    them on `device` unsynchronised, so it changes only the container.
+
+    mesh: a 1-D DeviceMesh (parallel/sharding.py pixel_mesh), with
+    `device` this process's device of it; call on every process of the
+    mesh with the same arguments.  Each process renders the block of every
+    camera's pixels (after the i1/i2 cut) that NamedSharding(P("pix"))
+    gives it in grtrans_tpu, so the mesh size must divide the pixel count;
+    the model is replicated.  Slow light measures the delays from their
+    least value over the whole camera (an all-reduce).  The results are
+    those of the run without a mesh, whole on every process: the blocks
+    are gathered once at the end.  gdfile under a mesh reads and writes the
+    file of the run without one: every process reads a bundle that matches
+    and keeps its block; else each traces its block, the first process of
+    the mesh gathers and saves the bundle, and the others wait for it.  A
+    mesh excludes chunk (a mesh shards the pixels; chunk bounds one
+    device's memory)."""
     if unported:
         raise NotImplementedError(
             f"grtrans_run options not ported: {sorted(unported)}")
@@ -92,6 +110,14 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
         raise NotImplementedError(f"prec={cfg.prec!r} is not ported")
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be a positive pixel count, got {chunk}")
+    if mesh is not None:
+        # every check that can refuse the call comes before the first
+        # collective, so that no process is left waiting in one
+        if chunk is not None:
+            raise ValueError("mesh= and chunk= are mutually exclusive: a "
+                             "mesh shards the pixel axis; chunking bounds "
+                             "one device's memory")
+        sharding.check_device(mesh, device)
     t_start = time.perf_counter()
     a = cfg.spin
     a1, a2, b1, b2 = cfg.gridvals
@@ -108,20 +134,25 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
         return cam_mod.make_camera(a, float(mu0), a1, a2, b1, b2, nro, nphi,
                                    cfg.nrotype, cfg.rcut, device=device)
 
+    def pixels(cam, s):
+        return cam._replace(alpha=cam.alpha[s], beta=cam.beta[s],
+                            l=cam.l[s], q2=cam.q2[s], sm=cam.sm[s])
+
     # every mu-camera shares the pixel grid and so the observer u0
-    uout = camera_uout(cfg, camera(mus[0]))
+    probe = camera(mus[0])
+    uout = camera_uout(cfg, probe)
+    # the pixel subrange (1-based inclusive, read_inputs.f90:22-23), and
+    # this process's block of it under a mesh
+    cut = slice(max(cfg.i1 - 1, 0), cfg.i2 if cfg.i2 > 0 else None)
+    mine = slice(None)
+    if mesh is not None:
+        mine = slice(*sharding.pixel_block(mesh, probe.alpha[cut].shape[0]))
     ivals, ab = [], None
     for mu0 in mus:
-        cam = camera(mu0)
-        if cfg.i1 > 0 or cfg.i2 > 0:
-            # pixel subrange (1-based inclusive, read_inputs.f90:22-23)
-            lo = cfg.i1 - 1 if cfg.i1 > 0 else 0
-            hi = cfg.i2 if cfg.i2 > 0 else cam.alpha.shape[0]
-            cam = cam._replace(alpha=cam.alpha[lo:hi], beta=cam.beta[lo:hi],
-                               l=cam.l[lo:hi], q2=cam.q2[lo:hi],
-                               sm=cam.sm[lo:hi])
+        cam = pixels(camera(mu0), cut)
         if ab is None:
             ab = torch.stack([cam.alpha, cam.beta], dim=0)
+        cam = pixels(cam, mine)
         npix = cam.alpha.shape[0]
         step = npix if chunk is None else min(chunk, npix)
         t0sh = None
@@ -131,7 +162,10 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
             t0sh = geokerr.camera_delay(a, float(mu0), cam.alpha, cam.beta,
                                         cam.l, cam.q2, cam.sm, cam.u0,
                                         uout)
-            t0sh = t0sh - t0sh.min()
+            tmin = t0sh.min()
+            if mesh is not None:
+                tmin = sharding.all_reduce(mesh, tmin, dist.ReduceOp.MIN)
+            t0sh = t0sh - tmin
 
         bundle = None
         if gdfile is not None:
@@ -142,14 +176,19 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
                 cfg.standard, cfg.gridvals, nro, nphi, cfg.nrotype, cfg.rcut,
                 i1=cfg.i1, i2=cfg.i2)
             path = gdfile if len(mus) == 1 else f"{gdfile}.mu{float(mu0):.6f}"
-            bundle = geo_cache.load_bundle(path, key, device=home)
-            if bundle is None or bundle.x.shape[0] != npix:
-                parts = [trace_camera(cfg, cam, mu0, slice(lo, lo + step))
-                         for lo in range(0, npix, step)]
-                bundle = GeodesicBundle(*(
-                    torch.cat([getattr(g, f).to(home) for g in parts])
-                    for f in GeodesicBundle._fields))
-                geo_cache.save_bundle(path, bundle, key)
+            if mesh is None:
+                bundle = geo_cache.load_bundle(path, key, device=home)
+                if bundle is None or bundle.x.shape[0] != npix:
+                    parts = [trace_camera(cfg, cam, mu0,
+                                          slice(lo, lo + step))
+                             for lo in range(0, npix, step)]
+                    bundle = GeodesicBundle(*(
+                        torch.cat([getattr(g, f).to(home) for g in parts])
+                        for f in GeodesicBundle._fields))
+                    geo_cache.save_bundle(path, bundle, key)
+            else:
+                bundle = _mesh_bundle(cfg, cam, mu0, mesh, mine, path, key,
+                                      device)
         # scan[i]: the pixel blocks of the i-th (time, mdot) render
         scan = [[] for _ in range(cfg.nt * cfg.nmdot)]
         for lo in range(0, npix, step):
@@ -178,6 +217,9 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
                         nvals=cfg.nvals, standard=cfg.standard,
                         extra=cfg.extra))
         ivals.extend(torch.cat(parts, dim=1) for parts in scan)
+    if mesh is not None:
+        whole = sharding.gather_pixels(mesh, torch.cat(ivals, dim=0), dim=1)
+        ivals = list(whole.split([iv.shape[0] for iv in ivals]))
     if not device_output:
         ivals = torch.cat(ivals, dim=0)
     if verbose:
@@ -185,3 +227,31 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
             torch.cuda.synchronize(device)
         print(f"grtrans_run: {time.perf_counter() - t_start:.2f} s")
     return ivals, ab, freqs
+
+
+def _mesh_bundle(cfg, cam, mu0, mesh, mine, path, key, device):
+    """This process's block `mine` of the camera's bundle at `path` (the
+    file of the run without a mesh) under the mesh; `cam` holds the block.
+    Every process reads the file; unless every one found a bundle that
+    matches, each traces its block, the first process of the mesh gathers
+    the blocks and saves the bundle, and the others wait at a barrier."""
+    group = mesh.get_group(0)
+    found = geo_cache.load_bundle(path, key, device="cpu")
+    npix = cam.alpha.shape[0] * mesh.size()
+    hit = torch.tensor([int(found is not None and found.x.shape[0] == npix)],
+                       device=device)
+    if sharding.all_reduce(mesh, hit, dist.ReduceOp.MIN).item():
+        return GeodesicBundle(*(v[mine].to(device) for v in found))
+    bundle = trace_camera(cfg, cam, mu0)
+    root = dist.get_global_rank(group, 0)
+    first = mesh.get_local_rank() == 0
+    whole = []
+    for v in bundle:
+        parts = [torch.empty_like(v) for _ in range(mesh.size())]
+        dist.gather(v.contiguous(), parts if first else None, dst=root,
+                    group=group)
+        whole.append(torch.cat(parts) if first else None)
+    if first:
+        geo_cache.save_bundle(path, GeodesicBundle(*whole), key)
+    dist.barrier(group=group)
+    return bundle

@@ -327,7 +327,9 @@ def _grtrans_run(**options):
 UNPORTED = {
     "mixed": (NotImplementedError,
               lambda: Grtrans(**_tiny(prec="mixed")).run(device="cpu")),
-    "mesh": (NotImplementedError, lambda: _grtrans_run(mesh=object())),
+    # a mesh shards the pixels, chunk bounds one device's memory: refused
+    # together, as grtrans_tpu refuses them, before the mesh is looked at
+    "mesh": (ValueError, lambda: _grtrans_run(mesh=object(), chunk=8)),
     # a fluid name that neither package knows, as grtrans_tpu raises it
     "HARM2D": (ValueError,
                lambda: Grtrans(**_tiny(fname="HARM2D")).run(device="cpu")),

@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from grtrans_tpu.__main__ import main as jmain
 from grtrans_tpu.config import GrtransConfig as JConfig
@@ -41,6 +42,7 @@ from grtrans_tpu_torch.io import fitsio as tfits
 from grtrans_tpu_torch.io import namelist as tnml
 from grtrans_tpu_torch.io.binio import read_camera_bin
 from grtrans_tpu_torch.orchestrator import grtrans_run
+from grtrans_tpu_torch.parallel import sharding
 
 torch.set_num_threads(1)   # the suite runs in parallel worker processes
 
@@ -270,7 +272,17 @@ def test_verbose_and_device_output(plain_geo, capsys):
     assert isinstance(parts, list) and len(parts) == 2
     assert all(p.shape == (2, 64, 4) for p in parts)
     assert torch.equal(torch.cat(parts), whole)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh of one process gives the same list; what is not a mesh is
+    # refused
+    assert not dist.is_initialized()
+    try:
+        meshed, _, _ = grtrans_run(cfg, device="cpu", device_output=True,
+                                   mesh=sharding.pixel_mesh(device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert len(meshed) == 2
+    assert all(torch.equal(m, p) for m, p in zip(meshed, parts))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         grtrans_run(cfg, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="mixed"):
         grtrans_run(dataclasses.replace(cfg, prec="mixed"), device="cpu")

@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from grtrans_tpu.config import GrtransConfig as JConfig
 from grtrans_tpu.fluid.ffjet import FFJet as JFFJet
@@ -19,6 +20,7 @@ from grtrans_tpu.fluid.ffjet import load_ffjet_file
 from grtrans_tpu.orchestrator import grtrans_run as jrun
 from grtrans_tpu_torch import convert
 from grtrans_tpu_torch.orchestrator import grtrans_run as trun
+from grtrans_tpu_torch.parallel import sharding
 from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
 
 torch.set_num_threads(1)   # the suite runs in parallel worker processes
@@ -69,8 +71,8 @@ def test_image_is_a_polarized_jet(renders):
 def test_registry_load_and_unported_options(tmp_path):
     """grtrans_run loads FFJET by name from cfg.fargs, refuses what the
     port does not implement instead of rendering something else, and
-    raises ValueError for a fluid name neither package knows; a gdfile
-    bundle renders the image of a fresh trace."""
+    raises ValueError for a fluid name neither package knows; a mesh of
+    one process and a gdfile bundle render the image of a plain run."""
     dfile = tmp_path / "ffjet.bin"
     write_ffjet_dump(dfile, nx=32)
     cfg = convert.config_from_jax(JConfig(**flagship_kwargs(dfile,
@@ -84,8 +86,15 @@ def test_registry_load_and_unported_options(tmp_path):
     for name in ("RIAF", "HARM2D", "KORALRAD"):
         with pytest.raises(ValueError, match=f"unknown fluid model '{name}'"):
             trun(dataclasses.replace(cfg, fname=name), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        trun(cfg, model, device="cpu", mesh=object())
+    # a gloo world of one in this process renders the same image; the
+    # group goes with the test, so no other test sees it
+    assert not dist.is_initialized()
+    try:
+        meshed, _, _ = trun(cfg, model, device="cpu",
+                            mesh=sharding.pixel_mesh(device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(meshed, preloaded)
     for _ in range(2):                  # traces and saves, then loads
         cached, _, _ = trun(cfg, model, device="cpu",
                             gdfile=str(tmp_path / "geo.npz"))
@@ -114,7 +123,8 @@ def test_pixel_subrange_is_a_slice_of_the_camera(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the command line's __main__ too."""
+    """Every module of the port, the command line's __main__ too; importing
+    them opens no process group and starts no process."""
     code = ("import importlib, pkgutil, sys, grtrans_tpu_torch as p\n"
             "names = [m.name for m in\n"
             "         pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
@@ -122,10 +132,14 @@ def test_port_imports_no_jax():
             "    importlib.import_module(name)\n"
             "want = {'__main__', 'io.namelist', 'io.fitsio',\n"
             "        'geodesics.cache', 'tools.geodebug', 'tools.pgriter',\n"
-            "        'ops.elliptic', 'ops.interp', 'ops.quadrature'}\n"
+            "        'ops.elliptic', 'ops.interp', 'ops.quadrature',\n"
+            "        'parallel.sharding', 'parallel.dryrun'}\n"
             "missing = {p.__name__ + '.' + w for w in want} - set(names)\n"
             "assert not missing, missing\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'grtrans_tpu')]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "import multiprocessing, torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "assert not multiprocessing.active_children()\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
