@@ -104,8 +104,35 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      through the slabs equal to phase 12's image with one quad_gather_rows
      launch a slab counted, each slab's kernel timed on the frame's queries
      beside the whole table's and its bound; (c) sample_sharded on the
-     world of one equal to vals.
-The line before the last is a JSON object of the kernels; the last line
+     world of one equal to vals; (d) dry-run part (c), the gradient of a
+     SARIAF render's total flux with respect to (n0, t0) through the
+     pixel-sharded render (the block's backward pass and one all_reduce),
+     equal to the gradient without a mesh (rtol 1e-10);
+ 21. the backward kernels of the gathers with respect to their weights,
+     quad_gather_bwd_w (FFJET f64, 4e6 random rows of (16384, 4 x 9)) and
+     quad_gather_rows_bwd_w (the snapshot's (4,718,592, 2 x 10), R = 4),
+     against their plain twins (1e-14 of max|twin|), the out-of-range
+     flag, a table that requires a gradient refused, CUDA-event times
+     beside the backward of embedding_bag with respect to its
+     per_sample_weights and the byte bound;
+ 22. path (a), the flagship forward and backward pass of grtrans_tpu's
+     scripts/fwdbwd_bench.py: FFJET + POLSYNCHPL at 100x100 x 400 f64
+     through tools.invert.InverseProblem (rays from uout = 0.01, as the
+     flagship frame), d(sum|image| / (npix 4))/d(spin, mu0) with per-stage
+     recompute, pixel chunks sized to the card's free
+     memory (the count printed), launches counted a chunk (quad_gather
+     forward and recompute, quad_gather_bwd_w), no plain twin called, warm
+     time and peak memory; the gradient against central differences on
+     the card (1e-2) and, at 16x16 x 64, against the port's CPU gradient
+     (1e-8);
+ 23. path (b), a geometry-only gradient, d/d(mu0), on the HARM3D frame of
+     phase 12 through quad_gather_rows and quad_gather_rows_bwd_w (one
+     launch a chunk), checked the same way (the CPU comparison on a
+     32x24x16 snapshot);
+ 24. path (c), tools.emitter_observer.run on the card: (4.1, 2.3)
+     recovered within 0.05, within 1e-6 of the same search on the CPU.
+The line before the last is a JSON object of the kernels (and of the
+gradient paths; no NaN token: a non-finite number is null); the last line
 is {"ok": true, "device": {...}}.
 """
 
@@ -248,11 +275,20 @@ def gather_bound_ms(n, ns, nc, nf, dtype):
                                  else "operations")
 
 
+# the plain twins, whose calls a path on the card must not make
+TWINS = ("quad_gather_ref", "quad_gather_rows_ref", "quad_gather_bwd_w_ref",
+         "quad_gather_rows_bwd_w_ref")
+
+
 def reset_counts(qg):
     qg.quad_gather.launches = 0
     qg.quad_gather.launches_by_kernel.clear()
     qg.quad_gather_rows.launches = 0
     qg.quad_gather_rows.launches_by_kernel.clear()
+    qg.quad_gather_bwd_w.launches = 0
+    qg.quad_gather_rows_bwd_w.launches = 0
+    for name in TWINS:
+        getattr(qg, name).calls = 0
 
 
 def read_counts(qg):
@@ -261,7 +297,10 @@ def read_counts(qg):
     return dict(quad_gather=qg.quad_gather.launches, tiled=by["tiled"],
                 wide=by["wide"], generic=by["generic"],
                 quad_gather_rows=qg.quad_gather_rows.launches,
-                rows_tiled=rows["tiled"], rows_simple=rows["simple"])
+                rows_tiled=rows["tiled"], rows_simple=rows["simple"],
+                quad_gather_bwd_w=qg.quad_gather_bwd_w.launches,
+                quad_gather_rows_bwd_w=qg.quad_gather_rows_bwd_w.launches,
+                twin_calls=sum(getattr(qg, name).calls for name in TWINS))
 
 
 def rows_bound_ms(idx, w, ns, nc, nf):
@@ -1483,11 +1522,421 @@ def mesh_phase(dev, qg, flagship, model, snapshot_image, whole_rows):
               f"{rel:.3e} (bar {ROWS_TOL[torch.float64]:g})")
         if not rel <= ROWS_TOL[torch.float64]:
             raise AssertionError(f"sample_sharded: {rel}")
+
+        # (d) dry-run part (c): the gradient of a SARIAF render's total
+        # flux with respect to (n0, t0), the block's backward pass and one
+        # all_reduce, against the gradient without a mesh
+        from grtrans_tpu_torch.parallel import dryrun
+        t0 = time.perf_counter()
+        ours = dryrun.check_gradient(dev, mesh, 1, None).cpu()
+        wall = time.perf_counter() - t0
+        ref = dryrun.check_gradient(dev, None, 1, None).cpu()
+        err = dryrun.max_rel_each(ours, ref)
+        print(f"dry-run part (c) on a world of one: (loss, d/dn0, d/dt0) "
+              f"{ours.tolist()}, max rel against no mesh {err:.3e} (bar "
+              f"{dryrun.GRAD_RTOL}), {wall * 1e3:.1f} ms")
+        if not (torch.isfinite(ours).all() and err <= dryrun.GRAD_RTOL):
+            raise AssertionError(f"sharded gradient: {err}")
     finally:
         dist.destroy_process_group()
     return mesh_counts, slab_counts, dict(
         whole_ms=whole_rows["kernel"], whole_bound_ms=whole_rows["bound_ms"],
         per_slab=per_slab)
+
+
+GRAD_FD_STEPS = {"spin": 1e-4, "mu0": 1e-5}   # tests/test_torch_gradients.py
+GRAD_FD_RTOL = 1e-2                   # card gradient vs central differences
+# card gradient vs the port's CPU one.  Not 1e-8: a ray near the shadow has
+# features a few 1e-7 wide in (spin, mu0), and where rounding moves one
+# across the point the gradient takes the feature's slope, so the total
+# moves with the rounding: on one CPU by up to 3.5e-7 between batches of 1
+# and of 256 pixels (PyTorch's vectorised exp and log round a vector's
+# tail differently), by 2.4e-4 between two CPUs (PyTorch 2.13 and 2.11),
+# by 5.9e-5 between the card and its host's CPU at the flagship point
+# (my CPU and chip runs)
+GRAD_CPU_RTOL = 1e-3
+GRAD_NN = (16, 16, 64)                # the card-vs-CPU gradient camera
+# path (a) starts its rays where the flagship frame does (flagship_config):
+# from the camera's own u0 = 2e-9 (r = 5e8, fwdbwd_bench's start) the
+# affine parameter's prefix sum rounds at ~1e-7, and a ray's image moves in
+# steps of ~1e-3 of itself each 2e-7 of mu0 (my CPU runs), which no secant
+# can hold a gradient against
+FLAGSHIP_UOUT = 0.01
+
+
+def bwd_bound_ms(idx, nc, nf, dtype):
+    """Least time for one backward of the weights: index, output gradient
+    and dw once and every distinct row once over the memory rate, against
+    2 R nc nf operations a query over the peak rate."""
+    n = idx.shape[0]
+    r = idx.numel() // n
+    size = torch.finfo(dtype).bits // 8
+    distinct = idx.unique().numel()
+    nbytes = n * r * 4 + n * nf * size + n * r * nc * size \
+        + distinct * nc * nf * size
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * n * r * nc * nf / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), distinct
+
+
+def check_bwd(qg, name, table, idx, g, nc, nf):
+    """The weights' backward kernel against its plain twin on the card
+    (1e-14 of max|twin|, no out-of-range flag), then CUDA event times in
+    the order plain, library, kernel, kernel, library, plain.  The library
+    yardstick is the backward of embedding_bag(..., per_sample_weights=w,
+    mode="sum") with respect to w (the forward left out: its graph is
+    kept and its backward replayed).  Returns the dict of mean times, the
+    bound and max_abs_err."""
+    rows = idx.dim() == 2
+    kern = qg.quad_gather_rows_bwd_w if rows else qg.quad_gather_bwd_w
+    twin = qg.quad_gather_rows_bwd_w_ref if rows \
+        else qg.quad_gather_bwd_w_ref
+    n, ns = idx.shape[0], table.shape[0]
+    r = idx.shape[1] if rows else 1
+    out = kern(table, idx, g, nc, nf)
+    ref = twin(table, idx, g, nc, nf)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"{name}: max|kernel - plain| {err:.3e} (max|plain| {scale:.3e}, "
+          f"bar 1e-14 of it)")
+    if not err <= 1e-14 * scale:
+        raise AssertionError(f"{name}: {err} > 1e-14 * {scale}")
+    if qg.error_flag(table.device).item() != 0:
+        raise AssertionError(f"{name}: out-of-range flag set")
+    bag_idx = (idx.long().reshape(n, r, 1) * nc
+               + torch.arange(nc, device=idx.device)).reshape(n, r * nc)
+    w = torch.ones((n, r * nc), dtype=table.dtype, device=table.device,
+                   requires_grad=True)
+    bag = torch.nn.functional.embedding_bag(
+        bag_idx, table.view(ns * nc, nf), per_sample_weights=w, mode="sum")
+    lib = torch.autograd.grad(bag, w, g, retain_graph=True)[0]
+    lib_err = (lib.view_as(ref) - ref).abs().max().item()
+
+    def plain():
+        return twin(table, idx, g, nc, nf)
+
+    def library():
+        return torch.autograd.grad(bag, w, g, retain_graph=True)
+
+    def kernel():
+        return kern(table, idx, g, nc, nf)
+
+    times = {}
+    for fn in (plain, library, kernel, kernel, library, plain):
+        times.setdefault(fn.__name__, []).append(cuda_ms(fn, reps=10))
+    bound, bound_by, distinct = bwd_bound_ms(idx, nc, nf, table.dtype)
+    res = {k: sum(v) / len(v) for k, v in times.items()}
+    res.update(bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+    print(f"{name}: N={n} R={r} table=({ns}, {nc * nf}) {table.dtype}, "
+          f"{distinct} distinct rows: kernel "
+          + "/".join(f"{t:.4f}" for t in times["kernel"]) + " ms, plain "
+          + "/".join(f"{t:.4f}" for t in times["plain"])
+          + " ms, embedding_bag backward "
+          + "/".join(f"{t:.4f}" for t in times["library"])
+          + f" ms; bound {bound:.4f} ms by {bound_by} (share of bound "
+          f"{bound / res['kernel']:.3f}); max|embedding_bag - plain| "
+          f"{lib_err:.2e}")
+    del bag, w
+    return res
+
+
+def bwd_kernel_phase(dev, qg):
+    """Phase 21: both backward kernels against their twins at the shapes
+    of the gradient paths (uniformly random rows, N = 4e6): FFJET f64
+    (16384, 4 x 9) and the snapshot's phi-pair-packed table (4,718,592,
+    2 x 10), R = 4; the out-of-range flag of each; a table that requires
+    a gradient refused."""
+    rng = np.random.default_rng(SEED + 21)
+    out = {}
+    for name, ns, r, nc, nf in (
+            ("quad_gather_bwd_w", FFJET_NX ** 2, None, 4, 9),
+            ("quad_gather_rows_bwd_w", int(np.prod(SNAPSHOT_NX)), 4, 2,
+             10)):
+        shape = (N_QUERIES,) if r is None else (N_QUERIES, r)
+        table = torch.as_tensor(rng.standard_normal((ns, nc * nf)),
+                                device=dev)
+        idx = torch.as_tensor(rng.integers(0, ns, shape), dtype=torch.int32,
+                              device=dev)
+        g = torch.as_tensor(rng.standard_normal((N_QUERIES, nf)), device=dev)
+        out[name] = check_bwd(qg, f"{name} f64, random rows", table, idx, g,
+                              nc, nf)
+        # an out-of-range row: NaN in that query's dw, the flag set
+        bad = idx[:3].clone()
+        bad.view(-1)[r or 1] = ns
+        kern = getattr(qg, name)
+        dw = kern(table, bad, g[:3].contiguous(), nc, nf)
+        flag = qg.error_flag(dev)
+        torch.cuda.synchronize()
+        if flag.item() != 1 or not torch.isnan(dw[1]).all() \
+                or torch.isnan(dw[[0, 2]]).any():
+            raise AssertionError(f"{name}: out-of-range row not flagged")
+        flag.zero_()
+        table.requires_grad_()
+        w = torch.ones(shape + (nc,), dtype=table.dtype, device=dev)
+        fwd = qg.quad_gather if r is None else qg.quad_gather_rows
+        try:
+            fwd(table, idx, w, nc, nf)
+        except NotImplementedError as e:
+            print(f"{name}: out-of-range row flagged, its dw NaN; a table "
+                  f"that requires a gradient refused ({e})")
+        else:
+            raise AssertionError("a table that requires grad was gathered")
+        del table, idx, g, w
+    return out
+
+
+def chunk_for(render_loss, npix, probe=500):
+    """Pixels a chunk: a probe chunk's forward and backward gives the peak
+    device memory a pixel, and a chunk takes half the free memory (a
+    divisor of npix).  Returns (chunk, bytes a pixel)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    render_loss((0, probe))
+    torch.cuda.synchronize()
+    per_px = (torch.cuda.max_memory_allocated() - base) / probe
+    free = torch.cuda.mem_get_info()[0]
+    fit = max(int(0.5 * free / per_px), 1)
+    chunk = max(d for d in range(1, npix + 1) if npix % d == 0 and d <= fit)
+    return chunk, per_px
+
+
+def grad_path(qg, dev, name, prob, params):
+    """d(loss)/d(params) of loss = sum|image| / (npix * 4) (the
+    fwdbwd_bench loss of grtrans_tpu's scripts), the image rendered by
+    InverseProblem `prob` in pixel chunks, gradients accumulated: a counted
+    run (launches a chunk, with the counts set to 0 before each chunk's
+    forward and read after its backward), then a warm one timed with its
+    peak memory; central differences of the same loss on the card.
+    Returns (summed counts, a record of the path)."""
+    npix = prob.npix
+
+    def leaves():
+        return {k: torch.tensor(v, dtype=torch.float64, device=dev,
+                                requires_grad=True)
+                for k, v in params.items()}
+
+    def chunk_loss(p, pix):
+        return prob.render(p, pix=pix).abs().sum() / (npix * 4)
+
+    def value_and_grad(chunk, counts=None):
+        p = leaves()
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        for lo in range(0, npix, chunk):
+            if counts is not None:
+                reset_counts(qg)
+            loss = chunk_loss(p, (lo, lo + chunk))
+            loss.backward()
+            if counts is not None:
+                torch.cuda.synchronize()
+                counts.append(read_counts(qg))
+            total += loss.detach()
+        return total.item(), {k: v.grad.item() for k, v in p.items()}
+
+    chunk, per_px = chunk_for(
+        lambda pix: chunk_loss(leaves(), pix).backward(), npix)
+    counts = []
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(chunk, counts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loss2, grads2 = value_and_grad(chunk)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = {k: sum(c[k] for c in counts) for k in counts[0]}
+    if total["twin_calls"] != 0:
+        raise AssertionError(f"{name}: a plain twin ran on the card")
+    if not (np.isfinite(loss) and all(np.isfinite(v)
+                                      for v in grads.values())):
+        raise AssertionError(f"{name}: loss {loss}, gradients {grads}")
+    if grads2 != grads:
+        print(f"{name}: warm rerun's gradients {grads2} (first {grads})")
+    # central differences, pixel by pixel at steps h and h / 2: the render
+    # has jumps (rays that switch between plunging and turning near the
+    # shadow, the tau = 10 cut, the table's inner edge), and a secant
+    # across one measures the jump.  The pixels whose two secants agree
+    # (1e-2) are the ones where the loss is smooth over the step; the
+    # gradient of the loss summed over them is held against their secants'
+    # sum.  The pixels' derivatives have both signs (the spin's total is a
+    # few percent of the sum of their sizes), so the difference is measured
+    # against the sum of their sizes, as the error of a sum is bounded
+    def pixel_losses(q):
+        with torch.no_grad():
+            return torch.cat([prob.render(q, pix=(lo, lo + chunk)).abs()
+                              .sum(-1) / (npix * 4)
+                              for lo in range(0, npix, chunk)])
+
+    fd, rel, smooth_frac = {}, {}, {}
+    for k in grads:
+        h = GRAD_FD_STEPS[k]
+        sec = [(pixel_losses(dict(params, **{k: params[k] + s_}))
+                - pixel_losses(dict(params, **{k: params[k] - s_})))
+               / (2 * s_) for s_ in (h, h / 2)]
+        floor = 1e-10 * loss / (npix * h)
+        smooth = (torch.isfinite(sec[0]) & torch.isfinite(sec[1])
+                  & ((sec[0] - sec[1]).abs()
+                     <= 1e-2 * (sec[0].abs() + sec[1].abs()) + floor))
+        p = leaves()
+        for lo in range(0, npix, chunk):
+            img = prob.render(p, pix=(lo, lo + chunk))
+            part = (img.abs().sum(-1) / (npix * 4))[smooth[lo:lo + chunk]]
+            part.sum().backward()
+        ad = p[k].grad.item()
+        fd[k] = sec[1][smooth].sum().item()
+        rel[k] = abs(ad - fd[k]) / sec[1][smooth].abs().sum().item()
+        fd[k + " (rel to the total)"] = abs(ad - fd[k]) / abs(fd[k])
+        smooth_frac[k] = smooth.double().mean().item()
+        fd[k + " (every pixel)"] = sec[1].sum().item()
+        fd[k + " (smooth pixels, autograd)"] = ad
+    print(f"{name}: {prob.nn[0]}x{prob.nn[1]}x{prob.nn[2]} f64, "
+          f"{npix // chunk} chunk(s) of {chunk} pixels "
+          f"({per_px / 2 ** 20:.3f} MiB a pixel in the probe); loss "
+          f"{loss:.12e}, gradients {grads}; central differences "
+          f"{fd} (steps {GRAD_FD_STEPS} and half of them; smooth pixels "
+          f"{smooth_frac}), |autograd - secants| over the sum of the smooth "
+          f"pixels' |secant| {rel} (bar {GRAD_FD_RTOL}); launches a chunk "
+          f"{counts[0]}; first "
+          f"{first_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms, peak "
+          f"{peak / 2 ** 30:.3f} GiB")
+    if not all(v <= GRAD_FD_RTOL for v in rel.values()) \
+            or not all(v >= 0.9 for v in smooth_frac.values()):
+        raise AssertionError(f"{name}: card gradient vs FD {rel}, smooth "
+                             f"pixels {smooth_frac}")
+    return total, dict(chunks=npix // chunk, chunk=chunk, loss=loss,
+                       grads=grads, fd=fd, fd_rel=rel,
+                       smooth_pixels=smooth_frac, per_chunk=counts[0],
+                       first_ms=first_s * 1e3, warm_ms=warm_s * 1e3,
+                       peak_gib=peak / 2 ** 30)
+
+
+def grad_card_vs_cpu(name, make, params, qg):
+    """The gradient of the same loss at GRAD_NN on the card and on the
+    CPU (one chunk each), rel GRAD_CPU_RTOL."""
+    got = {}
+    for where in ("cuda", "cpu"):
+        prob = make(torch.device(where))
+        p = {k: torch.tensor(v, dtype=torch.float64, device=prob.device,
+                             requires_grad=True) for k, v in params.items()}
+        loss = prob.render(p).abs().sum() / (prob.npix * 4)
+        loss.backward()
+        got[where] = {k: v.grad.item() for k, v in p.items()
+                      if v.grad is not None}
+    rel = {k: abs(got["cuda"][k] - got["cpu"][k]) / abs(got["cpu"][k])
+           for k in got["cpu"]}
+    print(f"{name} at {GRAD_NN}: card {got['cuda']}, CPU {got['cpu']}, "
+          f"rel {rel} (bar {GRAD_CPU_RTOL})")
+    if not all(v <= GRAD_CPU_RTOL for v in rel.values()):
+        raise AssertionError(f"{name}: card vs CPU gradient {rel}")
+
+
+def fwdbwd_phase(dev, qg):
+    """Phase 22, path (a): the flagship forward and backward pass of
+    grtrans_tpu's scripts/fwdbwd_bench.py: FFJET + POLSYNCHPL at
+    100x100 x 400 f64 through InverseProblem(fixed=dict(ntscl=2.0,
+    nrscl=70.0)), gradient with respect to (spin, mu0) at (0.9, 0.9),
+    pixel chunks accumulated; rays from uout = FLAGSHIP_UOUT."""
+    from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
+    from grtrans_tpu_torch.tools.invert import InverseProblem
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dfile = Path(tmp) / "ffjet.bin"
+        write_ffjet_dump(dfile, nx=FFJET_NX, seed=SEED)
+
+        def make(device, nn=NN):
+            return InverseProblem(
+                fname="FFJET", ename="POLSYNCHPL", iname="formal",
+                freq=3.45e11, mbh=3.4e9, nn=nn,
+                gridvals=(-40.0, 20.0, -20.0, 40.0),
+                fixed=dict(dfile=str(dfile), ntscl=2.0, nrscl=70.0),
+                uout=FLAGSHIP_UOUT, device=device)
+
+        params = dict(spin=0.9, mu0=0.9)
+        counts, rec = grad_path(qg, dev, "fwdbwd_ffjet", make(dev), params)
+        per = rec["per_chunk"]
+        if per["quad_gather_bwd_w"] < 1 or per["quad_gather_rows_bwd_w"]:
+            raise AssertionError(f"fwdbwd_ffjet: launches {per}")
+        grad_card_vs_cpu("fwdbwd_ffjet", lambda d: make(d, GRAD_NN), params,
+                         qg)
+    return counts, rec
+
+
+def harm3d_grad_phase(dev, qg, model):
+    """Phase 23, path (b): a geometry-only gradient, d(loss)/d(mu0), on
+    the HARM3D frame of phase 12 (the 288x128x128 snapshot, loaded once,
+    100x100 x 400 from uout = 0.04), through quad_gather_rows and its
+    backward kernel; the card against the CPU on a 32x24x16 snapshot."""
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.testing import grmhd_dump
+    from grtrans_tpu_torch.tools.invert import InverseProblem
+
+    kw = snapshot_kwargs("HARM3D", NN)
+
+    def make(device, nn=NN, snap=None):
+        return InverseProblem(
+            fname="HARM3D", ename=kw["ename"], iname=kw["iname"],
+            freq=kw["fmin"], mbh=kw["mbh"], nn=nn, gridvals=kw["gridvals"],
+            uout=kw["uout"], fixed=dict(spin=kw["spin"]),
+            source=dict(nfac=SNAPSHOT_MDOT, mdot=SNAPSHOT_MDOT,
+                        mu=kw["muval"], gmin=kw["gmin"]),
+            model=snap, device=device)
+
+    counts, rec = grad_path(qg, dev, "grad_harm3d", make(dev, snap=model),
+                            dict(mu0=kw["mumin"]))
+    per = rec["per_chunk"]
+    if per["quad_gather_rows_bwd_w"] != 1 or per["quad_gather_bwd_w"]:
+        raise AssertionError(f"grad_harm3d: launches {per}")
+    dump = grmhd_dump.harm3d_dump(32, 24, 16, seed=SEED)
+    snaps = {d: load_fluid_model("HARM3D", device=d, dump=dump)
+             for d in ("cuda", "cpu")}
+    grad_card_vs_cpu("grad_harm3d", lambda d: make(
+        d, GRAD_NN, snaps[d.type]), dict(mu0=kw["mumin"]), qg)
+    return counts, rec
+
+
+def emitter_phase(dev):
+    """Phase 24, path (c): emitter_observer.run on the card recovers the
+    impact parameters of tests/test_tools.py's emission point (4.1, 2.3)
+    within 0.05 and lands within 1e-6 of the same search on the CPU."""
+    from grtrans_tpu_torch.tools import emitter_observer as eo
+    a, mu0, ustar, ab = 0.9, float(np.cos(np.deg2rad(45.0))), 0.125, (4.1,
+                                                                        2.3)
+    mu_c, ph_c, ok = eo._point_at_u(a, mu0, *(torch.tensor(
+        v, dtype=torch.float64, device=dev) for v in ab), ustar)
+    if not bool(ok):
+        raise AssertionError("emitter_observer: the ray misses r = 8")
+    guess = (ab[0] + 0.4, ab[1] - 0.4)
+    t0 = time.perf_counter()
+    res = eo.run(ustar, mu_c.item(), -ph_c.item(), guess, a=a, mu0=mu0,
+                 device=dev)
+    wall = time.perf_counter() - t0
+    cpu = eo.run(ustar, mu_c.item(), -ph_c.item(), guess, a=a, mu0=mu0,
+                 device="cpu")
+    dx = np.abs(res.x - cpu.x).max()
+    print(f"emitter_observer on the card: x {res.x.tolist()} (true {ab}), "
+          f"fun {res.fun:.3e}, {res.nit} iterations, {res.nfev} evaluations "
+          f"in {wall:.2f} s; CPU x {cpu.x.tolist()}, max|card - CPU| "
+          f"{dx:.2e} (bar 1e-6)")
+    if not (res.fun < 1e-6 and np.abs(res.x - ab).max() <= 0.05
+            and dx <= 1e-6):
+        raise AssertionError(f"emitter_observer: {res.x}, {res.fun}, {dx}")
+    return dict(wall_s=wall, nfev=int(res.nfev))
+
+
+def finite_or_none(obj):
+    """obj with every non-finite float replaced by None (a JSON null), so
+    that no line carries a bare NaN token."""
+    if isinstance(obj, dict):
+        return {k: finite_or_none(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [finite_or_none(v) for v in obj]
+    if isinstance(obj, float) and not np.isfinite(obj):
+        return None
+    return obj
 
 
 def by_path(paths, key):
@@ -1566,7 +2015,13 @@ def run(dev):
     paths["pgriter_harm3d"] = pgriter_phase(dev, qg, snapshot)
     paths["mesh_ffjet"], paths["slab_harm3d"], slabs = mesh_phase(
         dev, qg, flagship, snapshot, snapshot_image, frame_times)
-    del snapshot, flagship
+    del flagship
+    bwd = bwd_kernel_phase(dev, qg)
+    paths["fwdbwd_ffjet"], fwdbwd = fwdbwd_phase(dev, qg)
+    paths["grad_harm3d"], grad_harm3d = harm3d_grad_phase(dev, qg, snapshot)
+    del snapshot
+    emitter = emitter_phase(dev)
+    grad_paths = ("fwdbwd_ffjet", "grad_harm3d")
 
     main = shapes["ffjet f64"]
     wide = shapes["phatdisk f64"]
@@ -1577,7 +2032,7 @@ def run(dev):
     rows_by_kernel = {k: sum(by_path(paths, "rows_" + k).values())
                       for k in ("tiled", "simple")}
     print(card)
-    print(json.dumps({"kernels": [{
+    print(json.dumps(finite_or_none({"kernels": [{
         "name": "quad_gather", "route": "cuda", "source": source,
         "replaces": "grtrans_tpu/ops/pallas_gather.py:49",
         "launches": sum(by_path(paths, "quad_gather").values()),
@@ -1603,7 +2058,21 @@ def run(dev):
         "max_abs_err": rows["max_abs_err"], "ms": rows["kernel"],
         "plain_ms": rows["plain"], "bound_ms": rows["bound_ms"],
         "bound_by": rows["bound_by"], "library_ms": rows["library"],
-        "simple_ms": rows["simple"]}]}))
+        "simple_ms": rows["simple"]}] + [{
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(paths[p][name] for p in grad_paths),
+        "launches_by_path": {p: paths[p][name] for p in grad_paths},
+        "max_abs_err": bwd[name]["max_abs_err"], "ms": bwd[name]["kernel"],
+        "plain_ms": bwd[name]["plain"], "bound_ms": bwd[name]["bound_ms"],
+        "bound_by": bwd[name]["bound_by"],
+        "library_ms": bwd[name]["library"]} for name, replaces in (
+            ("quad_gather_bwd_w", "grtrans_tpu/ops/pallas_gather.py:49"),
+            ("quad_gather_rows_bwd_w", "grtrans_tpu/fluid/grmhd3d.py:212"))],
+        "gradient_paths": {"fwdbwd_ffjet": fwdbwd,
+                           "grad_harm3d": grad_harm3d,
+                           "emitter_observer": emitter}}),
+                     allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

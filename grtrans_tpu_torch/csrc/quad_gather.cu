@@ -99,7 +99,9 @@
 // kernel: 0 tiled (the shape must be one it is built for), 1 generic, 2
 // wide.  quad_gather_rows_f32 / _f64 launch the multi-row gather the same
 // way: `variant` 0 tiled (`dedup` 0 every slot copies its row, 1 a warp's
-// lanes share a row's copy), 1 simple.
+// lanes share a row's copy), 1 simple.  quad_gather_bwd_w_f32 / _f64 and
+// quad_gather_rows_bwd_w_f32 / _f64 launch the backward with respect to
+// the weights (the end of this file).
 
 #include <cstdint>
 #include <cstdio>
@@ -804,7 +806,134 @@ int launch(const T* table, const int32_t* idx, const T* w, T* out, int* err,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the backward with respect to the weights ----
+//
+//   dw[n, r, c] = sum_f g[n, f] * table[idx[n, r], c * nf + f]
+//
+// g is the gradient of the output.  R = 1 is quad_gather's backward
+// (quad_gather_bwd_w), R >= 1 quad_gather_rows's (quad_gather_rows_bwd_w).
+// The table takes no gradient (no path differentiates loaded data), so
+// there is no scatter and no atomic: every dw element is written once, by
+// one thread, which sums over the fields in order, so a run repeats
+// bitwise.  A query's R * nc threads are neighbours: together they read
+// its rows as the forward kernels do (thread (r, c) the nf consecutive
+// values of corner c of row r), share the query's g through L1, and store
+// the query's dw as one contiguous run.  Bound: the bytes, as the
+// forward's (index, g and dw once, each distinct row once); the shape is a
+// run-time argument, so every (R, nc, nf) the forward takes is taken.  A
+// row outside [0, ns) sets *err and writes NaN into every dw of its query.
+
+constexpr int kBwdThreads = 256;   // threads a block
+
+template <typename T>
+__device__ __forceinline__ void bwd_w_element(const T* __restrict__ table,
+                                              const int32_t* __restrict__ idx,
+                                              const T* __restrict__ g,
+                                              T* __restrict__ dw,
+                                              int* __restrict__ err,
+                                              long long n, long long ns,
+                                              int r, int nc, int nf) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  const long long per = static_cast<long long>(r) * nc;
+  if (t >= n * per) return;
+  const long long q = t / per;
+  const int k = static_cast<int>(t - q * per);
+  const int rr = k / nc;
+  const int c = k - rr * nc;
+  const int32_t* iq = idx + q * r;
+  bool bad = false;
+  for (int j = 0; j < r; ++j) {
+    const long long row = __ldg(iq + j);
+    bad |= row < 0 || row >= ns;
+  }
+  if (bad) {
+    if (k == 0) atomicExch(err, 1);
+    dw[t] = quiet_nan<T>();
+    return;
+  }
+  const T* trow = table + static_cast<long long>(__ldg(iq + rr)) * nc * nf
+                  + static_cast<long long>(c) * nf;
+  const T* gq = g + q * nf;
+  T acc = T(0);
+  for (int f = 0; f < nf; ++f) acc += __ldg(gq + f) * __ldg(trow + f);
+  dw[t] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+quad_gather_bwd_w(const T* __restrict__ table, const int32_t* __restrict__ idx,
+                  const T* __restrict__ g, T* __restrict__ dw,
+                  int* __restrict__ err, long long n, long long ns, int nc,
+                  int nf) {
+  bwd_w_element(table, idx, g, dw, err, n, ns, 1, nc, nf);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+quad_gather_rows_bwd_w(const T* __restrict__ table,
+                       const int32_t* __restrict__ idx,
+                       const T* __restrict__ g, T* __restrict__ dw,
+                       int* __restrict__ err, long long n, long long ns, int r,
+                       int nc, int nf) {
+  bwd_w_element(table, idx, g, dw, err, n, ns, r, nc, nf);
+}
+
+template <typename T>
+int launch_bwd_w(const T* table, const int32_t* idx, const T* g, T* dw,
+                 int* err, long long n, long long ns, int r, int nc, int nf,
+                 bool rows, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (r < 1 || nc < 1 || nf < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    const long long total = n * r * nc;
+    const unsigned int blocks =
+        static_cast<unsigned int>((total + kBwdThreads - 1) / kBwdThreads);
+    if (rows)
+      quad_gather_rows_bwd_w<T><<<blocks, kBwdThreads, 0, stream>>>(
+          table, idx, g, dw, err, n, ns, r, nc, nf);
+    else
+      quad_gather_bwd_w<T><<<blocks, kBwdThreads, 0, stream>>>(
+          table, idx, g, dw, err, n, ns, nc, nf);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int quad_gather_bwd_w_f32(const float* table, const int32_t* idx,
+                                     const float* g, float* dw, int* err,
+                                     long long n, long long ns, int nc,
+                                     int nf, void* stream) {
+  return launch_bwd_w<float>(table, idx, g, dw, err, n, ns, 1, nc, nf, false,
+                             stream);
+}
+
+extern "C" int quad_gather_bwd_w_f64(const double* table, const int32_t* idx,
+                                     const double* g, double* dw, int* err,
+                                     long long n, long long ns, int nc,
+                                     int nf, void* stream) {
+  return launch_bwd_w<double>(table, idx, g, dw, err, n, ns, 1, nc, nf, false,
+                              stream);
+}
+
+extern "C" int quad_gather_rows_bwd_w_f32(const float* table,
+                                          const int32_t* idx, const float* g,
+                                          float* dw, int* err, long long n,
+                                          long long ns, int r, int nc, int nf,
+                                          void* stream) {
+  return launch_bwd_w<float>(table, idx, g, dw, err, n, ns, r, nc, nf, true,
+                             stream);
+}
+
+extern "C" int quad_gather_rows_bwd_w_f64(const double* table,
+                                          const int32_t* idx, const double* g,
+                                          double* dw, int* err, long long n,
+                                          long long ns, int r, int nc, int nf,
+                                          void* stream) {
+  return launch_bwd_w<double>(table, idx, g, dw, err, n, ns, r, nc, nf, true,
+                              stream);
+}
 
 extern "C" int quad_gather_f32(const float* table, const int32_t* idx,
                                const float* w, float* out, int* err,

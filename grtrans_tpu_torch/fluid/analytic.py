@@ -16,6 +16,7 @@ from grtrans_tpu_torch import constants as pc
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
 from grtrans_tpu_torch.geometry import kerr
+from grtrans_tpu_torch.ops import scalar as sc
 
 
 def _u_from_3vel(g, vr, vth, omega):
@@ -37,8 +38,8 @@ def keplerian_omega(r, th, a):
     (fluid_model_thindisk.f90:66-80)."""
     rms = kerr.calc_rms(a)
     d = r * r - 2.0 * r + a * a
-    lc = (rms * rms - 2.0 * a * math.sqrt(rms) + a * a) \
-        / (rms ** 1.5 - 2.0 * math.sqrt(rms) + a)
+    lc = (rms * rms - 2.0 * a * sc.sqrt(rms) + a * a) \
+        / (rms ** 1.5 - 2.0 * sc.sqrt(rms) + a)
     hc = (2.0 * r - a * lc) / d
     ar = (r * r + a * a) ** 2 - a * a * d * th.sin() ** 2
     om = 2.0 * a * r / ar
@@ -66,7 +67,7 @@ class ThinDisk:
         _check_device(self, x)
         r = x[..., 1]
         th = x[..., 2]
-        rin = max(kerr.calc_rms(a), self.rin)
+        rin = sc.clamp_min(kerr.calc_rms(a), self.rin)
         b = 1.0 - 3.0 / r + 2.0 * a / r ** 1.5
         kc = kerr.krolikc(r, a)
         lbh = pc.lbh(self.mbh)

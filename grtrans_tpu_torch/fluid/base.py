@@ -203,6 +203,44 @@ def apply_source_params(ei, sp):
     return ei._replace(ncgsnth=ncgsnth), gmin_used
 
 
+def _pick(mask, first, second):
+    """where(mask, first, second) over every tensor of two FluidVars (a
+    dict field key by key; None stays None)."""
+    def one(f, s):
+        if torch.is_tensor(f):
+            m = mask.reshape(mask.shape + (1,) * (f.dim() - mask.dim()))
+            return torch.where(m, f, s)
+        if isinstance(f, dict):
+            return {k: one(v, s[k]) for k, v in f.items()}
+        return f
+    return FluidVars(*(one(f, s) for f, s in zip(first, second)))
+
+
+def vals_outside_horizon(vals, x, k, a, **kwargs):
+    """vals(x, k, a, **kwargs) with a finite gradient for models whose
+    sample is NaN inside the horizon (the BL -> KS shift takes the log of
+    r - r+): such a sample is masked by the driver, but a NaN in the
+    forward makes the backward 0 * NaN.  Under a gradient (x or a tensor a
+    requires one) the samples at r <= r+ are evaluated at twice r+ instead,
+    and their values are taken from the plain evaluation, so that the
+    forward is the plain one bit for bit and those samples' gradient is 0.
+    Without a gradient it is vals itself."""
+    grad = torch.is_grad_enabled() and (
+        x.requires_grad or (torch.is_tensor(a) and a.requires_grad))
+    if not grad:
+        return vals(x, k, a, **kwargs)
+    from grtrans_tpu_torch.geometry import kerr
+    rh = kerr.horizon(a.detach() if torch.is_tensor(a) else a)
+    hole = ~(x[..., 1].detach() > rh)
+    if not bool(hole.any()):
+        return vals(x, k, a, **kwargs)
+    with torch.no_grad():
+        plain = vals(x, k, a, **kwargs)
+    r = torch.where(hole, 2.0 * rh, x[..., 1])
+    safe = torch.cat([x[..., :1], r[..., None], x[..., 2:]], dim=-1)
+    return _pick(hole, plain, vals(safe, k, a, **kwargs))
+
+
 def one_snapshot(nt):
     """The reference's nt, the count of dump files read as a time series
     (the namelists' fnt), which grtrans_tpu's snapshot models accept: the

@@ -33,7 +33,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from grtrans_tpu_torch.fluid.base import FluidVars
+from grtrans_tpu_torch.fluid.base import FluidVars, vals_outside_horizon
 from grtrans_tpu_torch.fluid.harm import four_vectors, x2_of_theta
 from grtrans_tpu_torch.geometry import kerr
 from grtrans_tpu_torch.ops.intcast import to_int32, trunc_clip
@@ -252,6 +252,11 @@ class Grmhd3D(nn.Module):
         return self._slab
 
     def vals(self, x, k, a, time=0.0):
+        """FluidVars of every sample; under a gradient the samples inside
+        the horizon keep a finite gradient (base.vals_outside_horizon)."""
+        return vals_outside_horizon(self._vals, x, k, a, time=time)
+
+    def _vals(self, x, k, a, time=0.0):
         nx2 = self.uniqx2.shape[0]
         nx3 = self.uniqx3.shape[0]
         q = self._query(x, a, time=time)

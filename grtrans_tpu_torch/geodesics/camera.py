@@ -7,6 +7,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from grtrans_tpu_torch.ops import scalar as sc
+
 INPUT_LIMIT = 1e-10  # tiny-value clamp, geokerr_wrapper.f:204-211
 FAC = 100.0
 
@@ -65,3 +67,14 @@ def make_camera(a, mu0, a1, a2, b1, b2, nro, nphi, nrotype=2, rcut=1.0, *,
     return Camera(alpha=dev(alpha), beta=dev(beta), l=dev(l), q2=dev(q2),
                   sm=dev(sm), su=dev(np.ones_like(l)), u0=float(u0),
                   mu0=float(mu0), a=float(a))
+
+
+def constants_of_motion(a, mu0, alpha, beta):
+    """The photon constants (l, q2) of pixels (alpha, beta) for spin `a` and
+    observer cos(inclination) `mu0`, in torch ops, so that a gradient
+    flows to a tensor a or mu0 (grtrans_tpu/tools/invert.py:104-110; a
+    camera made by make_camera holds them as numbers).  No tiny-value
+    clamp: it would cut the gradient where it acts."""
+    l = -alpha * sc.sqrt(1.0 - mu0 * mu0)
+    q2 = beta ** 2 + (alpha ** 2 - a * a) * mu0 * mu0
+    return l, q2

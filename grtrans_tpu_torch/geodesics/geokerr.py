@@ -8,8 +8,11 @@ inversion each (ops/weierstrass.py); t, phi and the affine parameter are
 per-segment Gauss-Legendre integrals with Hermite-interpolated nodes,
 summed with a two-level blocked prefix sum.
 
-The spin `a` and the observer's mu0 are Python floats; per-pixel
-constants are (npix,) tensors that broadcast against (npix, npts).
+The spin `a` and the observer's mu0 are Python floats, or 0-d tensors
+where a gradient flows to them (tools/invert.py); per-pixel constants are
+(npix,) tensors that broadcast against (npix, npts).  Every masked sqrt,
+log and division keeps grtrans_tpu's double-where guard, so that a
+masked branch gives a zero gradient and not NaN.
 """
 
 import math
@@ -201,7 +204,7 @@ class _RaySetup(NamedTuple):
 def _setup(a, mu0, l, q2, sm, u0):
     uf = 1.0 / kerr.horizon(a) * (1.0 - HOR_EPS)
     u0v = torch.full_like(l, u0)
-    mu0v = torch.full_like(l, mu0)
+    mu0v = torch.zeros_like(l) + mu0
     cU, u_turn, lam_rturn, turn = _radial_setup(a, l, q2, u0v, uf)
     cM = _m_coeffs(a, l, q2)
     g2u, g3u = wss.quartic_invariants(cU[4], cU[3], cU[2], cU[1], cU[0])
@@ -415,15 +418,16 @@ def trace(a, mu0, alpha, beta, l, q2, sm, u0, npts, uout=None, phi0=0.0):
     u = uout (default: the observer's u0) to the horizon, or back out to
     uout after a radial turning point (reference standard=1 sampling).
 
-    alpha, beta, l, q2, sm are (npix,) float64 tensors; a, mu0, u0, uout
-    and phi0 are floats.  Returns a GeodesicBundle on their device."""
+    alpha, beta, l, q2, sm are (npix,) float64 tensors; a and mu0 numbers
+    (floats, or 0-d tensors that carry a gradient), u0, uout and phi0
+    floats.  Returns a GeodesicBundle on their device."""
     st, uf = _setup(a, mu0, l, q2, sm, u0)
 
     lam_start = torch.zeros_like(l)
     if uout is not None:
         uo = torch.minimum(torch.full_like(l, uout), st.u_turn * (1 - 1e-9))
         lam_start = _lam_of_u(st.cU, st.u0, torch.maximum(uo, st.u0))
-    lam_plunge = _lam_of_u(st.cU, st.u0, torch.full_like(l, uf))
+    lam_plunge = _lam_of_u(st.cU, st.u0, torch.zeros_like(l) + uf)
     lam_end = torch.where(st.turn, 2.0 * st.lam_rturn - lam_start,
                           lam_plunge)
 

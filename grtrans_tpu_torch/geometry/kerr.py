@@ -1,6 +1,7 @@
 """Kerr spacetime in Boyer-Lindquist coordinates: metrics, the LNRF
 frame and null wavevectors.  Elementwise maps over tensors; the spin `a`
-is a Python float.  Port of the parts of grtrans_tpu/geometry/kerr.py on
+is a Python float, or a 0-d tensor where a gradient flows to it
+(ops/scalar.py).  Port of the parts of grtrans_tpu/geometry/kerr.py on
 the render path (reference kerr.f90: krolikc :109, calcg :181, calc_nullp
 :255, metrics :337-400, LNRF frame :402-474, calc_polar_psi :954, BL <-> KS shifts :131-162,
 calc_polvec :998, calc_kappapw :1047, plunging flow :1120-1190)."""
@@ -10,6 +11,7 @@ import math
 import torch
 
 from grtrans_tpu_torch.geometry import fourvector as fv
+from grtrans_tpu_torch.ops import scalar as sc
 
 
 def safe_sqrt(x):
@@ -20,7 +22,7 @@ def safe_sqrt(x):
 
 def horizon(a):
     """Outer horizon radius r_+ = 1 + sqrt(1-a^2)."""
-    return 1.0 + math.sqrt(1.0 - a * a)
+    return 1.0 + sc.sqrt(1.0 - a * a)
 
 
 def delta(r, a):
@@ -31,7 +33,7 @@ def delta(r, a):
 def _delta(r, a):
     """Delta = r^2 - 2r + a^2 in the factored form (r - r+)(r - r-),
     which stays exact near the horizon."""
-    h = math.sqrt(max(1.0 - a * a, 0.0))
+    h = sc.sqrt(sc.clamp_min(1.0 - a * a, 0.0))
     return (r - (1.0 + h)) * (r - (1.0 - h))
 
 
@@ -99,14 +101,14 @@ def ks_metric_cov(r, th, a):
 
 def bl2ks_time(r, t, a):
     """BL -> KS time shift (kerr.f90:147-154)."""
-    sq = math.sqrt(1.0 - a * a)
+    sq = sc.sqrt(1.0 - a * a)
     return (t + torch.log(r * r - 2.0 * r + a * a)
             + 1.0 / (2.0 * sq) * torch.log((r - 1.0 - sq) / (r - 1.0 + sq)))
 
 
 def bl2ks_phi(r, ph, a):
     """BL -> KS azimuth shift (kerr.f90:156-162)."""
-    sq = math.sqrt(1.0 - a * a)
+    sq = sc.sqrt(1.0 - a * a)
     return ph + a / (2.0 * sq) * torch.log((r - 1.0 - sq) / (r - 1.0 + sq))
 
 
@@ -119,20 +121,20 @@ def uks2ubl(uks, r, a):
 
 
 def calc_rms(a):
-    """ISCO radius (prograde for a > 0), a Python float (kerr.f90:101-107)."""
+    """ISCO radius (prograde for a > 0), a number of a's type
+    (kerr.f90:101-107)."""
     z1 = 1.0 + (1.0 - a * a) ** (1.0 / 3.0) * ((1.0 + a) ** (1.0 / 3.0)
                                                + (1.0 - a) ** (1.0 / 3.0))
-    z2 = math.sqrt(3.0 * a * a + z1 * z1)
-    sign = (a > 0) - (a < 0)
-    return 3.0 + z2 - sign * math.sqrt((3.0 - z1) * (3.0 + z1 + 2.0 * z2))
+    z2 = sc.sqrt(3.0 * a * a + z1 * z1)
+    return 3.0 + z2 - sc.sign(a) * sc.sqrt((3.0 - z1) * (3.0 + z1 + 2.0 * z2))
 
 
 def calc_rms_constants(a):
-    """(E_ms, L_ms, r_ms) of the marginally stable orbit, Python floats
-    (kerr.f90:1129-1138)."""
+    """(E_ms, L_ms, r_ms) of the marginally stable orbit, numbers of a's
+    type (kerr.f90:1129-1138)."""
     rms = calc_rms(a)
-    v = 1.0 / math.sqrt(rms)
-    den = math.sqrt(1.0 - 3.0 * v * v + 2.0 * a * v ** 3)
+    v = 1.0 / sc.sqrt(rms)
+    den = sc.sqrt(1.0 - 3.0 * v * v + 2.0 * a * v ** 3)
     ems = (1.0 - 2.0 * v * v + a * v ** 3) / den
     lms = rms * v * (1.0 - 2.0 * a * v ** 3 + a * a * v ** 4) / den
     return ems, lms, rms
@@ -141,12 +143,12 @@ def calc_rms_constants(a):
 def krolikc(r, a):
     """Page-Thorne / Krolik flux correction factor of the thin disk
     (kerr.f90:109-129).  The roots y1..y3 depend on the spin alone and
-    stay Python floats."""
-    yms = math.sqrt(calc_rms(a))
+    are numbers of its type."""
+    yms = sc.sqrt(calc_rms(a))
     y = r.sqrt()
-    y1 = 2.0 * math.cos((math.acos(a) - math.pi) / 3.0)
-    y2 = 2.0 * math.cos((math.acos(a) + math.pi) / 3.0)
-    y3 = -2.0 * math.cos(math.acos(a) / 3.0)
+    y1 = 2.0 * sc.cos((sc.acos(a) - math.pi) / 3.0)
+    y2 = 2.0 * sc.cos((sc.acos(a) + math.pi) / 3.0)
+    y3 = -2.0 * sc.cos(sc.acos(a) / 3.0)
     arg1 = 3.0 * a / (2.0 * y)
     arg2 = 3.0 * (y1 - a) ** 2 / (y * y1 * (y1 - y2) * (y1 - y3))
     arg3 = 3.0 * (y2 - a) ** 2 / (y * y2 * (y2 - y1) * (y2 - y3))
@@ -169,14 +171,23 @@ def _lnrf_factors(r, mu, a):
     return d, ar, rho, enu, emu1, emu2, epsi, om
 
 
+def _outside(r, a):
+    """(Delta > 0, r where Delta > 0 and 4 M elsewhere): the LNRF maps are
+    zero inside the horizon, and the factors of their masked branch are
+    taken at a radius outside it, so that its gradient is 0 and not NaN
+    (the double where of safe_sqrt)."""
+    ok = r * r - 2.0 * r + a * a > 0.0
+    return ok, torch.where(ok, r, 4.0)
+
+
 def lnrf_frame(vr, vt, omega, r, a, th):
     """Coordinate 3-velocity (vr, vth, Omega = dphi/dt) -> LNRF physical
     velocity (kerr.f90:402-425); zero where Delta <= 0."""
+    ok, r = _outside(r, a)
     d, ar, rho, enu, emu1, emu2, epsi, om = _lnrf_factors(r, th.cos(), a)
     vrl = emu1 / enu * vr
     vtl = emu2 / enu * vt
     vpl = epsi / enu * (omega - om)
-    ok = d > 0.0
     return (torch.where(ok, vrl, 0.0), torch.where(ok, vtl, 0.0),
             torch.where(ok, vpl, 0.0))
 
@@ -184,11 +195,11 @@ def lnrf_frame(vr, vt, omega, r, a, th):
 def lnrf_frame_inv(vrl, vtl, vpl, r, a, th):
     """LNRF physical velocity -> coordinate (vr, vth, Omega)
     (kerr.f90:451-474); zero where Delta <= 0."""
+    ok, r = _outside(r, a)
     d, ar, rho, enu, emu1, emu2, epsi, om = _lnrf_factors(r, th.cos(), a)
     vr = enu / emu1 * vrl
     vt = enu / emu2 * vtl
     omega = enu / epsi * vpl + om
-    ok = d > 0.0
     return (torch.where(ok, vr, 0.0), torch.where(ok, vt, 0.0),
             torch.where(ok, omega, 0.0))
 

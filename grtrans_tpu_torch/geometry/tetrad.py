@@ -2,13 +2,12 @@
 orthonormal frame (Kulkarni+2011).  Port of
 grtrans_tpu/geometry/tetrad.py (reference kerr.f90:502-730)."""
 
-import math
-
 import torch
 
 from grtrans_tpu_torch.geometry import fourvector as fv
 from grtrans_tpu_torch.geometry import kerr
 from grtrans_tpu_torch.geometry.kerr import safe_sqrt
+from grtrans_tpu_torch.ops import scalar as sc
 
 
 def transport_perpk(kvec, r, th, a, g_cov, kap1, kap2):
@@ -49,7 +48,8 @@ def comoving_ortho(r, th, a, alpha, beta, mus, u, b, k):
     transported polarization basis onto the projected B field (sin/cos of
     twice the angle), the k-B pitch angle, the redshift 1/khat^t, the disk
     emission cosine and a validity mask (kerr.f90:550-730).  `mus` is the
-    observer's cos(inclination), a Python float."""
+    observer's cos(inclination), a number (a 0-d tensor where a gradient
+    flows to it)."""
     g_cov = kerr.metric_cov(r, th, a)
     gtt = g_cov[..., 0]
     gtp = g_cov[..., 3]
@@ -63,7 +63,7 @@ def comoving_ortho(r, th, a, alpha, beta, mus, u, b, k):
     umc = gmm * um
 
     # Walker-Penrose constants at the observer (kerr.f90:635-636)
-    kap1 = alpha + a * math.sqrt(1.0 - mus * mus)
+    kap1 = alpha + a * sc.sqrt(1.0 - mus * mus)
     kap2 = -beta
     al1, al2, al3 = transport_perpk(k, r, th, a, g_cov, kap1, kap2)
     # degenerate pole-on case: basis along e_phi (kerr.f90:639-641)

@@ -21,6 +21,7 @@ K columns are [aI aQ aU aV rhoQ rhoU rhoV].
 import math
 
 import torch
+import torch.utils.checkpoint
 
 MAX_TAU = 10.0
 THIN = 1e-2    # DELO: cells shallower than this take the Taylor branch
@@ -343,7 +344,7 @@ def _pad(ncell):
     return (-ncell) % BLK
 
 
-def _march(maps, cell_ok, I, profile):
+def _march(maps, cell_ok, I, profile, recompute=False):
     """Far-to-near march over the cells.  `maps(blk)` returns the affine
     maps (O (4,4,npix,BLK), p (4,1,npix,BLK)) of the cells in slice `blk`
     of the far-first, padded cell axis (_far_first); `cell_ok`
@@ -354,29 +355,52 @@ def _march(maps, cell_ok, I, profile):
     affine composition is associative, so the grouping is exact) and
     returns the observed (npix, 4).  profile=True applies the cells one
     by one and returns (npix, npts, 4): entry i is the Stokes vector at
-    sample i, entry 0 the observer's, the last the starting vector."""
+    sample i, entry 0 the observer's, the last the starting vector.
+
+    recompute=True (a gradient flows through the coefficients): each block
+    step runs under torch.utils.checkpoint, so that the backward pass
+    holds one block's intermediates at a time and recomputes them from
+    the block's inputs, as grtrans_tpu wraps its block step in
+    jax.checkpoint (integrate/solvers.py:600-605, :622)."""
     ncell = cell_ok.shape[-1]
     cell_ok = _far_first(cell_ok, _pad(ncell))
     I_far = I
     rows = []
-    for lo in range(0, cell_ok.shape[-1], BLK):
+
+    def step(I, lo):
         blk = slice(lo, lo + BLK)
         O, p = _mask_cells(*maps(blk), cell_ok[..., blk])
         if profile:
+            out = []
             for jj in range(BLK):
                 I = _mm(O[..., jj], I) + p[..., jj]
-                rows.append(I[:, 0])
+                out.append(I[:, 0])
+            return I, torch.stack(out)
+        Ob, pb = O[..., 0], p[..., 0]
+        for jj in range(1, BLK):
+            Ob, pb = _compose((O[..., jj], p[..., jj]), (Ob, pb))
+        return _mm(Ob, I) + pb, None
+
+    for lo in range(0, cell_ok.shape[-1], BLK):
+        if recompute:
+            I, out = torch.utils.checkpoint.checkpoint(
+                step, I, lo, use_reentrant=False, preserve_rng_state=False)
         else:
-            Ob, pb = O[..., 0], p[..., 0]
-            for jj in range(1, BLK):
-                Ob, pb = _compose((O[..., jj], p[..., jj]), (Ob, pb))
-            I = _mm(Ob, I) + pb
+            I, out = step(I, lo)
+        if profile:
+            rows.extend(out.unbind(0))
     if not profile:
         return I[:, 0].transpose(0, 1)
     # rows[m]: after the first m + 1 cells from the far end, so sample i
     # is rows[ncell - 1 - i]; the far sample is the starting vector
     prof = torch.stack(rows[:ncell][::-1] + [I_far[:, 0]], dim=0)
     return prof.permute(2, 0, 1)
+
+
+def _needs_grad(*tensors):
+    """Whether a gradient is being recorded through any of `tensors`."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def _formal_maps(a, rho, jc, dlam, substeps):
@@ -448,7 +472,8 @@ def formal_solve(lam, j, K, mask=None, max_tau=MAX_TAU, I0=None, substeps=1,
     dlam = lam[..., 1:] - lam[..., :-1]                  # (npix, ncell)
     _, cell_ok = _cell_tau_mask(lam, K, mask, max_tau)
     return _march(_formal_maps(a, rho, jc, dlam, substeps), cell_ok,
-                  _initial_stokes(I0, lam.shape[0], j), profile)
+                  _initial_stokes(I0, lam.shape[0], j), profile,
+                  _needs_grad(lam, j, K, I0 if torch.is_tensor(I0) else None))
 
 
 def _delo_cells(j0, j1, K0, K1, aI0, aI1, dlam, thin):
@@ -512,7 +537,8 @@ def delo_solve(lam, j, K, mask=None, max_tau=MAX_TAU, thin=THIN, I0=None):
                            _opac_m4(k0[:4], k0[4:]), _opac_m4(k1[:4], k1[4:]),
                            k0[0], k1[0], dl[..., blk], thin)
 
-    return _march(maps, cell_ok, _initial_stokes(I0, lam.shape[0], j), True)
+    return _march(maps, cell_ok, _initial_stokes(I0, lam.shape[0], j), True,
+                  _needs_grad(lam, j, K, I0 if torch.is_tensor(I0) else None))
 
 
 def quadrature_solve(lam, j, K, mask=None, max_tau=MAX_TAU):

@@ -31,10 +31,26 @@ else.  `rows_kernel` picks; `simple=True` forces the simple kernel and
 `dedup=False` the tiled kernel without the warp's sharing of copies, so
 that they can be timed; the port runs the default, `dedup=True`.
 
+Gradients: each wrapper is a torch.autograd.Function wherever its
+weights carry a gradient.  The backward with respect to the weights,
+
+    quad_gather_bwd_w:       dw[n, c] = sum_f g[n, f] * table[idx[n], c * nf + f]
+    quad_gather_rows_bwd_w:  dw[n, r, c] = sum_f g[n, f]
+                                             * table[idx[n, r], c * nf + f]
+
+is a hand-written kernel of its own on the card and its plain twin
+(`quad_gather_bwd_w_ref`, `quad_gather_rows_bwd_w_ref`) on the CPU; the
+index takes no gradient, and a table that requires one raises
+NotImplementedError (every table is loaded data: no path of the renderer
+differentiates one, so the scatter-add that would need is not written).
+
 The library is compiled with nvcc on first use into
 grtrans_tpu_torch/_build/, keyed by a hash of its source, and bound with
-ctypes.  `quad_gather.launches` and `quad_gather_rows.launches` count
-kernel launches; `launches_by_kernel` of each splits them by kernel.
+ctypes.  `quad_gather.launches`, `quad_gather_rows.launches`,
+`quad_gather_bwd_w.launches` and `quad_gather_rows_bwd_w.launches` count
+kernel launches; `launches_by_kernel` of the forward wrappers splits them
+by kernel.  The plain twins count their calls (`calls`), so that a run can
+show that no path on the card reached them.
 """
 
 import collections
@@ -99,37 +115,115 @@ def bilinear_packed(table, n2, nf, i1, i2, w1, w2):
 
 def quad_gather_ref(table, idx, w, nc, nf):
     """Plain PyTorch version: (table[idx].view(N, nc, nf) * w).sum(corners)."""
+    quad_gather_ref.calls += 1
     n = idx.shape[0]
     return (table[idx.long()].view(n, nc, nf) * w[..., None]).sum(-2)
 
 
-def quad_gather(table, idx, w, nc, nf, generic=False):
-    """table (NS, nc*nf) float32/float64; idx (N,) int32; w (N, nc) of the
-    table's dtype; all contiguous on one device.  Returns (N, nf)."""
+def quad_gather_bwd_w_ref(table, idx, g, nc, nf):
+    """Plain PyTorch version of the weights' gradient: (N, nc)."""
+    quad_gather_bwd_w_ref.calls += 1
+    n = idx.shape[0]
+    return (table[idx.long()].view(n, nc, nf) * g[:, None, :]).sum(-1)
+
+
+quad_gather_ref.calls = quad_gather_bwd_w_ref.calls = 0
+
+
+def _check_operands(table, idx, x, nc, nf, rows, grad=False):
+    """Raise unless table is (NS, nc*nf) float32/float64, idx an int32
+    tensor of 2 axes (rows) or 1, and x, in the table's dtype, the weights
+    (idx.shape + (nc,)) or, with grad, the output's gradient (N, nf); all
+    contiguous on one device, the CPU or a card."""
     if table.dim() != 2 or table.shape[1] != nc * nf:
         raise ValueError(f"table must be (NS, {nc * nf}), got "
                          f"{tuple(table.shape)}")
     if table.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"table dtype {table.dtype} not supported")
-    if idx.dim() != 1 or idx.dtype != torch.int32:
-        raise TypeError("idx must be a 1-D int32 tensor")
-    if w.shape != (idx.shape[0], nc) or w.dtype != table.dtype:
-        raise ValueError(f"w must be ({idx.shape[0]}, {nc}) {table.dtype}, "
-                         f"got {tuple(w.shape)} {w.dtype}")
-    if not (table.device == idx.device == w.device):
+    idx_dim = 2 if rows else 1
+    if idx.dim() != idx_dim or idx.dtype != torch.int32:
+        raise TypeError(f"idx must be a {idx_dim}-D int32 tensor")
+    want = (idx.shape[0], nf) if grad else (*idx.shape, nc)
+    if tuple(x.shape) != want or x.dtype != table.dtype:
+        raise ValueError(f"{'g' if grad else 'w'} must be {want} "
+                         f"{table.dtype}, got {tuple(x.shape)} {x.dtype}")
+    if not (table.device == idx.device == x.device):
         raise ValueError("table, idx and w must be on one device")
     if not (table.is_contiguous() and idx.is_contiguous()
-            and w.is_contiguous()):
+            and x.is_contiguous()):
         raise ValueError("table, idx and w must be contiguous")
+    if table.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no quad_gather kernels for "
+                                  f"{table.device}")
+
+
+def _differentiable(table, w):
+    """Whether the call must record a gradient: the weights require one.
+    A table that requires one raises: the table gradient (a scatter-add
+    over the rows) is not written."""
+    if not torch.is_grad_enabled():
+        return False
+    if table.requires_grad:
+        raise NotImplementedError(
+            "quad_gather: the gradient with respect to the table is not "
+            "implemented (tables are loaded data; only the weights take a "
+            "gradient)")
+    return w.requires_grad
+
+
+class _QuadGather(torch.autograd.Function):
+    """quad_gather with the weights' gradient from quad_gather_bwd_w."""
+
+    @staticmethod
+    def forward(ctx, table, idx, w, nc, nf, generic):
+        ctx.save_for_backward(table, idx)
+        ctx.shape = nc, nf
+        return _gather(table, idx, w, nc, nf, generic)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        table, idx = ctx.saved_tensors
+        dw = quad_gather_bwd_w(table, idx, g.contiguous(), *ctx.shape)
+        return None, None, dw, None, None, None
+
+
+def _gather(table, idx, w, nc, nf, generic):
     if table.device.type == "cpu":
         return quad_gather_ref(table, idx, w, nc, nf)
-    if table.device.type != "cuda":
-        raise NotImplementedError(f"no quad_gather for {table.device}")
     return _launch(table, idx, w, nc, nf, generic)
+
+
+def quad_gather(table, idx, w, nc, nf, generic=False):
+    """table (NS, nc*nf) float32/float64; idx (N,) int32; w (N, nc) of the
+    table's dtype; all contiguous on one device.  Returns (N, nf),
+    differentiable in w."""
+    _check_operands(table, idx, w, nc, nf, rows=False)
+    if _differentiable(table, w):
+        return _QuadGather.apply(table, idx, w, nc, nf, generic)
+    return _gather(table, idx, w, nc, nf, generic)
 
 
 quad_gather.launches = 0
 quad_gather.launches_by_kernel = collections.Counter()
+
+
+def quad_gather_bwd_w(table, idx, g, nc, nf):
+    """The gradient of quad_gather with respect to its weights, given the
+    output's gradient g (N, nf): dw (N, nc).  The kernel on the card, the
+    plain version on the CPU."""
+    _check_operands(table, idx, g, nc, nf, rows=False, grad=True)
+    if table.device.type == "cpu":
+        return quad_gather_bwd_w_ref(table, idx, g, nc, nf)
+    n = idx.shape[0]
+    dw = torch.empty((n, nc), dtype=table.dtype, device=table.device)
+    _launch_bwd("quad_gather_bwd_w", table, idx, g, dw, (n, table.shape[0],
+                                                         nc, nf))
+    quad_gather_bwd_w.launches += 1
+    return dw
+
+
+quad_gather_bwd_w.launches = 0
 
 TILED_SHAPES = ((4, 9), (2, 6), (4, 6), (4, 10), (4, 11), (2, 2), (4, 1))
 WIDE_MIN_NF = 32
@@ -151,35 +245,87 @@ def gather_kernel(nc, nf, aligned, generic=False):
 def quad_gather_rows_ref(table, idx, w, nc, nf):
     """Plain PyTorch version: the R gathered rows of each query, viewed
     (N, R, nc, nf), weighted and summed over rows and corners."""
+    quad_gather_rows_ref.calls += 1
     n, r = idx.shape
     rows = table[idx.long().reshape(-1)].view(n, r, nc, nf)
     return (rows * w[..., None]).sum((1, 2))
 
 
+def quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf):
+    """Plain PyTorch version of the weights' gradient: (N, R, nc)."""
+    quad_gather_rows_bwd_w_ref.calls += 1
+    n, r = idx.shape
+    rows = table[idx.long().reshape(-1)].view(n, r, nc, nf)
+    return (rows * g[:, None, None, :]).sum(-1)
+
+
+quad_gather_rows_ref.calls = quad_gather_rows_bwd_w_ref.calls = 0
+
+
+class _QuadGatherRows(torch.autograd.Function):
+    """quad_gather_rows with the weights' gradient from
+    quad_gather_rows_bwd_w."""
+
+    @staticmethod
+    def forward(ctx, table, idx, w, nc, nf, simple, dedup):
+        ctx.save_for_backward(table, idx)
+        ctx.shape = nc, nf
+        return _gather_rows(table, idx, w, nc, nf, simple, dedup)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        table, idx = ctx.saved_tensors
+        dw = quad_gather_rows_bwd_w(table, idx, g.contiguous(), *ctx.shape)
+        return None, None, dw, None, None, None, None
+
+
 def quad_gather_rows(table, idx, w, nc, nf, simple=False, dedup=True):
     """table (NS, nc*nf) float32/float64; idx (N, R) int32; w (N, R, nc) of
-    the table's dtype; all contiguous on one device.  Returns (N, nf).
-    `simple` and `dedup` (lanes of a warp that name one row share its
-    copy) only choose among the CUDA kernels."""
-    if table.dim() != 2 or table.shape[1] != nc * nf:
-        raise ValueError(f"table must be (NS, {nc * nf}), got "
-                         f"{tuple(table.shape)}")
-    if table.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"table dtype {table.dtype} not supported")
-    if idx.dim() != 2 or idx.dtype != torch.int32:
-        raise TypeError("idx must be a 2-D int32 tensor")
-    if w.shape != (*idx.shape, nc) or w.dtype != table.dtype:
-        raise ValueError(f"w must be {(*idx.shape, nc)} {table.dtype}, "
-                         f"got {tuple(w.shape)} {w.dtype}")
-    if not (table.device == idx.device == w.device):
-        raise ValueError("table, idx and w must be on one device")
-    if not (table.is_contiguous() and idx.is_contiguous()
-            and w.is_contiguous()):
-        raise ValueError("table, idx and w must be contiguous")
+    the table's dtype; all contiguous on one device.  Returns (N, nf),
+    differentiable in w.  `simple` and `dedup` (lanes of a warp that name
+    one row share its copy) only choose among the CUDA kernels."""
+    _check_operands(table, idx, w, nc, nf, rows=True)
+    if _differentiable(table, w):
+        return _QuadGatherRows.apply(table, idx, w, nc, nf, simple, dedup)
+    return _gather_rows(table, idx, w, nc, nf, simple, dedup)
+
+
+def quad_gather_rows_bwd_w(table, idx, g, nc, nf):
+    """The gradient of quad_gather_rows with respect to its weights, given
+    the output's gradient g (N, nf): dw (N, R, nc).  The kernel on the
+    card, the plain version on the CPU."""
+    _check_operands(table, idx, g, nc, nf, rows=True, grad=True)
+    if table.device.type == "cpu":
+        return quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf)
+    n, r = idx.shape
+    dw = torch.empty((n, r, nc), dtype=table.dtype, device=table.device)
+    _launch_bwd("quad_gather_rows_bwd_w", table, idx, g, dw,
+                (n, table.shape[0], r, nc, nf))
+    quad_gather_rows_bwd_w.launches += 1
+    return dw
+
+
+quad_gather_rows_bwd_w.launches = 0
+
+
+def _launch_bwd(name, table, idx, g, dw, sizes):
+    """Launch the backward kernel `name` on the current stream."""
+    lib = load_library()
+    fn = getattr(lib, name + ("_f64" if table.dtype == torch.float64
+                              else "_f32"))
+    err = error_flag(table.device)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(table.data_ptr(), idx.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                err.data_ptr(), *sizes, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _gather_rows(table, idx, w, nc, nf, simple, dedup):
     if table.device.type == "cpu":
         return quad_gather_rows_ref(table, idx, w, nc, nf)
-    if table.device.type != "cuda":
-        raise NotImplementedError(f"no quad_gather_rows for {table.device}")
     lib = load_library()
     n, r = idx.shape
     out = torch.empty((n, nf), dtype=table.dtype, device=table.device)
@@ -315,6 +461,18 @@ def load_library():
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+            fn.restype = ctypes.c_int
+        for name in ("quad_gather_bwd_w_f32", "quad_gather_bwd_w_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr]
+            fn.restype = ctypes.c_int
+        for name in ("quad_gather_rows_bwd_w_f32",
+                     "quad_gather_rows_bwd_w_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ptr]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

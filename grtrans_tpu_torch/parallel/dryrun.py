@@ -9,8 +9,11 @@ counterpart of grtrans_tpu's __graft_entry__.dryrun_multichip.
   (b) a HARM3D snapshot from testing/grmhd_dump.py, sharded over theta,
       feeds sample_sharded through a full IQUV render, equal to the
       replicated render;
-  (c) the gradient through the sharded render waits for gradients in the
-      port and raises NotImplementedError.
+  (c) the gradient of the total Stokes I of a SARIAF render with respect
+      to (n0, t0), each process's backward pass on its pixel block and one
+      all_reduce of the loss and the gradients
+      (sharding.value_and_grad_sharded), equal to the gradient in one
+      process (rtol 1e-10, the bar of tests/test_sharding.py).
 
 The parent spawns the processes (torch.multiprocessing, "spawn"); each
 joins a process group through a FileStore in a temporary directory (no
@@ -33,6 +36,7 @@ import torch
 import torch.multiprocessing as mp
 
 RTOL = 1e-12          # a sharded image against the run without a mesh
+GRAD_RTOL = 1e-10     # part (c): loss and gradients, each relative
 SPIN = 0.9
 MU0 = 0.5
 
@@ -227,6 +231,45 @@ def check_sharded_render(device, mesh, nproc, work):
     return check_sample_sharded(device, mesh, nproc, work, render=True)
 
 
+def _grad_loss(params, alpha, beta, l, q2, sm, u0, device):
+    """Total Stokes I of a SARIAF render of these pixels (16 points a ray)
+    as a function of params {"n0", "t0"}, as __graft_entry__'s part (c)."""
+    from grtrans_tpu_torch import driver
+    from grtrans_tpu_torch.fluid.base import SourceParams, load_fluid_model
+    from grtrans_tpu_torch.geodesics import geokerr
+    model = load_fluid_model("SARIAF", device=device, n0=params["n0"],
+                             t0=params["t0"], beta=10.0)
+    sp = SourceParams(mbh=4e6)
+    geo = geokerr.trace(SPIN, MU0, alpha, beta, l, q2, sm, u0, 16)
+    fv = model.vals(geo.x, geo.k, SPIN)
+    image = driver.render_rays(geo, fv, model.convert(fv, sp), "POLSYNCHTH",
+                               [2.3e11], MU0, alpha, beta, SPIN, 4e6, sp,
+                               iname="formal", nvals=4)
+    return image[0][:, 0].sum()
+
+
+def check_gradient(device, mesh, nproc, work):
+    """Part (c): (loss, dloss/dn0, dloss/dt0) of _grad_loss on a camera of
+    side^2 pixels; on a mesh each process differentiates its own block and
+    the results are summed by one all_reduce."""
+    from grtrans_tpu_torch.geodesics import camera
+    from grtrans_tpu_torch.parallel import sharding
+    side = _side(nproc, 4)
+    cam = camera.make_camera(SPIN, MU0, -12.0, 12.0, -12.0, 12.0, side, side,
+                             device=device)
+    rays = (cam.alpha, cam.beta, cam.l, cam.q2, cam.sm)
+    params = {k: torch.tensor(v, dtype=torch.float64, device=device)
+              for k, v in (("n0", 4e7), ("t0", 1.6e11))}
+    if mesh is None:
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        loss = _grad_loss(leaves, *rays, cam.u0, device)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return torch.stack([loss.detach(), *grads])
+    loss, grads = sharding.value_and_grad_sharded(
+        _grad_loss, mesh, params, rays, cam.u0, device)
+    return torch.stack([loss, grads["n0"], grads["t0"]])
+
+
 def check_halo(device, mesh, nproc, work):
     """halo_exchange_theta of blocks of 8 rows of arange(8 nproc): each
     process's (lo_ghost, hi_ghost)."""
@@ -285,8 +328,9 @@ CHECKS = {"sariaf": check_sariaf, "extra_subrange": check_extra_subrange,
           "standard2": check_standard2, "spectrum": check_spectrum,
           "gdfile": check_gdfile, "sample_sharded": check_sample_sharded,
           "sharded_render": check_sharded_render, "halo": check_halo,
-          "shard_shape": check_shard_shape, "refusals": check_refusals}
-PARTS = {"a": "sariaf", "b": "sharded_render"}
+          "shard_shape": check_shard_shape, "refusals": check_refusals,
+          "gradient": check_gradient}
+PARTS = {"a": "sariaf", "b": "sharded_render", "c": "gradient"}
 
 
 def _rank_main(rank, nproc, device, work, names, timeout):
@@ -385,6 +429,12 @@ def max_rel(ours, ref):
     return ((ours - ref).abs().max() / ref.abs().max()).item()
 
 
+def max_rel_each(ours, ref):
+    """The largest of |ours - ref| / |ref|, entry by entry (part (c)'s
+    loss and gradients lie twenty orders of magnitude apart)."""
+    return ((ours - ref).abs() / ref.abs()).max().item()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nproc", type=int, default=2)
@@ -394,10 +444,6 @@ def main(argv=None):
     ap.add_argument("--timeout", type=float, default=60.0,
                     help="seconds a collective may wait")
     args = ap.parse_args(argv)
-    if "c" in args.parts:
-        raise NotImplementedError(
-            "dry run part (c), the gradient through the sharded render, "
-            "waits for gradients in the port (ROADMAP Queue 1 item 4)")
     names = [PARTS[p] for p in args.parts]
     if args.device == "cuda" and torch.cuda.device_count() < args.nproc:
         raise RuntimeError(f"--nproc {args.nproc} needs as many cards; "
@@ -413,11 +459,13 @@ def main(argv=None):
             raise
         results = ranks.join()
     for name in names:
+        bar = GRAD_RTOL if name == "gradient" else RTOL
+        rel = max_rel_each if name == "gradient" else max_rel
         for r, res in enumerate(results):
-            err = max_rel(res[name], refs[name].cpu())
+            err = rel(res[name], refs[name].cpu())
             print(f"dryrun part {name} rank {r}: max rel err {err:.3e} "
-                  f"(bar {RTOL})")
-            if not err <= RTOL:
+                  f"(bar {bar})")
+            if not err <= bar:
                 raise AssertionError(f"{name}, rank {r}: {err}")
     print(f"dryrun ({args.nproc} x {args.device}): ok")
 

@@ -4,7 +4,8 @@ Port of grtrans_tpu/parallel/sharding.py onto torch.distributed.  Rays are
 independent, so every process renders a contiguous block of the camera's
 pixels with no communication in the render itself; the image is gathered
 at the end, and cross-pixel reductions (the slow-light epoch, spectra) are
-all-reduces.  The idiom is PyTorch's: one process a device (`torchrun
+all-reduces, and so are the parameter gradients of a loss summed over
+pixels (`value_and_grad_sharded`).  The idiom is PyTorch's: one process a device (`torchrun
 --nproc-per-node N`, or torch.multiprocessing as parallel/dryrun.py does),
 a process group over NCCL for "cuda" and gloo for "cpu", and a 1-D
 DeviceMesh whose one dimension is named "pix".  Nothing falls back: on
@@ -199,6 +200,29 @@ def render_sharded(render_fn, mesh, cam_arrays, *args, **kwargs):
     process."""
     return gather_pixels(mesh, render_fn(*shard_pixels(mesh, *cam_arrays),
                                          *args, **kwargs))
+
+
+def value_and_grad_sharded(loss_fn, mesh, params, cam_arrays, *args,
+                           **kwargs):
+    """(loss, {name: gradient}) of a loss that is a sum over pixels:
+    loss_fn(params, *this process's blocks of cam_arrays, *args, **kwargs)
+    on each process, its backward pass on that block alone, then one
+    all_reduce (SUM) of the loss and every gradient over the mesh, so that
+    every process holds the whole camera's value and gradients (the
+    backward psum of grtrans_tpu's jax.grad under a pixel sharding).
+    params: {name: tensor}; the gradients are taken with respect to
+    detached copies of them."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    loss = loss_fn(leaves, *shard_pixels(mesh, *cam_arrays), *args, **kwargs)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    flat = all_reduce(mesh, torch.cat([loss.detach().reshape(1)]
+                                      + [g.reshape(-1) for g in grads]))
+    out, at = {}, 1
+    for k, v in leaves.items():
+        out[k] = flat[at:at + v.numel()].reshape(v.shape)
+        at += v.numel()
+    return flat[0], out
 
 
 def mesh_device(mesh):

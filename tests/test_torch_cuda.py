@@ -498,3 +498,80 @@ def test_pgriter_through_a_loaded_snapshot_on_the_card(dev):
     assert qg.quad_gather_rows.launches - before == len(hist)
     assert abs(np.log(flux / target)) < 1e-3
     assert abs(np.log(fitted / 6e15)) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 4099, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r,nc,nf", [(None, 4, 9), (None, 2, 6), (None, 4, 6),
+                                     (None, 4, 10), (None, 2, 101),
+                                     (None, 2, 2), (None, 4, 1), (4, 2, 10),
+                                     (8, 2, 10), (1, 1, 10), (8, 1, 6),
+                                     (3, 3, 5)])
+def test_backward_kernels_match_plain(dev, dtype, r, nc, nf, n):
+    """quad_gather_bwd_w (r None) and quad_gather_rows_bwd_w against their
+    plain twins at every shape of the forward kernels (FFJET, POLSYNCHPL
+    and its per-sample p, HARM, PHATDISK, SPHACC, NUMDISK; the snapshot,
+    slow light, HARMPI, KORAL's bins, a run-time shape), bitwise repeated
+    from run to run (no atomics)."""
+    rng = np.random.default_rng(1)
+    ns = 257
+    shape = (n,) if r is None else (n, r)
+    table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, ns, shape), dtype=torch.int32,
+                          device=dev)
+    g = torch.as_tensor(rng.standard_normal((n, nf)), dtype=dtype,
+                        device=dev)
+    kern = qg.quad_gather_bwd_w if r is None else qg.quad_gather_rows_bwd_w
+    twin = qg.quad_gather_bwd_w_ref if r is None \
+        else qg.quad_gather_rows_bwd_w_ref
+    before = kern.launches
+    out = kern(table, idx, g, nc, nf)
+    ref = twin(table, idx, g, nc, nf)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert qg.error_flag(dev).item() == 0
+    assert out.shape == shape + (nc,) and out.dtype == dtype
+    assert (out - ref).abs().max().item() <= TOL[dtype] * \
+        ref.abs().max().item() * max(1.0, nf / 16)
+    assert torch.equal(out, kern(table, idx, g, nc, nf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [False, True])
+def test_gather_gradients_on_the_card(dev, rows):
+    """autograd through the Functions on the card: the weights' gradient
+    equals the CPU's (the twins), is launched as the backward kernel, and
+    no plain twin runs on the card; the backward kernels flag an
+    out-of-range row with NaN in that query's gradient."""
+    rng = np.random.default_rng(2)
+    r, nc, nf = (4, 2, 10) if rows else (None, 4, 9)
+    shape = (999,) if r is None else (999, r)
+    table = torch.as_tensor(rng.standard_normal((300, nc * nf)))
+    idx = torch.as_tensor(rng.integers(0, 300, shape), dtype=torch.int32)
+    w = torch.as_tensor(rng.uniform(0.0, 1.0, shape + (nc,)))
+    g = torch.as_tensor(rng.standard_normal((999, nf)))
+    fwd = qg.quad_gather_rows if rows else qg.quad_gather
+    bwd = qg.quad_gather_rows_bwd_w if rows else qg.quad_gather_bwd_w
+    grads = {}
+    for where in ("cpu", dev):
+        wt = w.to(where).clone().requires_grad_()
+        out = fwd(table.to(where), idx.to(where), wt, nc, nf)
+        calls = qg.quad_gather_ref.calls + qg.quad_gather_rows_ref.calls
+        launches = bwd.launches
+        out.backward(g.to(where))
+        grads[str(where)] = wt.grad.cpu()
+        if where == dev:
+            assert bwd.launches == launches + 1
+            assert qg.quad_gather_ref.calls + qg.quad_gather_rows_ref.calls \
+                == calls
+    torch.testing.assert_close(grads[str(dev)], grads["cpu"], rtol=1e-14,
+                               atol=1e-14)
+    bad = idx.to(dev).clone()
+    bad.view(-1)[0] = 300
+    dw = bwd(table.to(dev), bad, g.to(dev), nc, nf)
+    torch.cuda.synchronize()
+    assert qg.error_flag(dev).item() == 1
+    assert torch.isnan(dw[0]).all() and not torch.isnan(dw[1:]).any()
+    qg.error_flag(dev).zero_()

@@ -133,7 +133,8 @@ def test_port_imports_no_jax():
             "want = {'__main__', 'io.namelist', 'io.fitsio',\n"
             "        'geodesics.cache', 'tools.geodebug', 'tools.pgriter',\n"
             "        'ops.elliptic', 'ops.interp', 'ops.quadrature',\n"
-            "        'parallel.sharding', 'parallel.dryrun'}\n"
+            "        'parallel.sharding', 'parallel.dryrun',\n"
+            "        'tools.invert', 'tools.emitter_observer', 'ops.scalar'}\n"
             "missing = {p.__name__ + '.' + w for w in want} - set(names)\n"
             "assert not missing, missing\n"
             "bad = [m for m in sys.modules\n"

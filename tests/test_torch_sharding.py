@@ -2,7 +2,9 @@
 sharding through grtrans_run(mesh=) and parallel/sharding.py, and the
 theta-slab-sharded GRMHD sampler (fluid/grmhd3d.py sample_sharded), against
 the port's run in one process and against grtrans_tpu's shard_map on 4 of
-its 8 virtual CPU devices (tests/conftest.py).
+its 8 virtual CPU devices (tests/conftest.py); and the gradient through
+the pixel-sharded render (sharding.value_and_grad_sharded, dry-run part
+(c)) against the gradient in one process.
 
 One module fixture spawns the 4 processes once through
 grtrans_tpu_torch.parallel.dryrun (whose processes import no JAX), has
@@ -302,9 +304,25 @@ def test_slab_samples_sum_to_the_whole_gather():
     close("slab columns", total, whole.numpy(), 1e-14)
 
 
-def test_dryrun_part_c_waits_for_gradients():
-    with pytest.raises(NotImplementedError, match="part \\(c\\)"):
-        dryrun.main(["--nproc", "1", "--device", "cpu", "--parts", "c"])
+def test_sharded_gradient_matches_one_process(run):
+    """Part (c): each of 4 processes differentiates its pixel block of the
+    SARIAF total flux, one all_reduce sums the loss and the (n0, t0)
+    gradients; every process holds the one-process values at rtol 1e-10
+    (tests/test_sharding.py::test_sharded_gradient_matches_unsharded's
+    bar), each entry relative to itself."""
+    outs, ref = _every_rank(run, "gradient")
+    assert torch.isfinite(ref).all() and (ref != 0).all()
+    for out in outs:
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-10,
+                                   atol=0)
+
+
+def test_dryrun_part_c_waits_for_gradients(capsys):
+    """Part (c) ran NotImplementedError until the port had gradients; now
+    the dry run's command line runs it (one gloo process) and passes."""
+    dryrun.main(["--nproc", "1", "--device", "cpu", "--parts", "c"])
+    out = capsys.readouterr().out
+    assert "dryrun part gradient rank 0" in out and "ok" in out
 
 
 def jax_config(cfg):

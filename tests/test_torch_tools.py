@@ -16,20 +16,35 @@ dump re-integrated in the package that wrote it gives its pixel to 1e-12,
 in the other to 1e-8 of the pixel's I, and the port's dumped pixel equals
 the pixel of its full-camera render to 1e-10.  pgriter: the port's
 secant history equals grtrans_tpu's to 1e-8 relative, and a fit through
-a loaded model loads no model."""
+a loaded model loads no model.
 
+emitter_observer: the port's BFGS, its gradient from autograd through the
+trace, recovers the impact parameters of tests/test_tools.py's emission
+point to 0.05, as grtrans_tpu's does, and lands within 1e-6 of grtrans_tpu's
+res.x.  fit_image: three Adam steps on a 4x4 x 16 SARIAF problem give
+grtrans_tpu's parameters and losses to 1e-8 (measured 3e-11).  The fit
+integrates with the unpolarized quadrature: the reverse pass of
+grtrans_tpu's polarized march takes over a minute to compile on this
+sandbox's CPU, and tests/test_torch_gradients.py holds that march's
+gradient."""
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from grtrans_tpu.config import GrtransConfig as JConfig
 from grtrans_tpu.tools import geodebug as jdebug
+from grtrans_tpu.tools import emitter_observer as jeo
+from grtrans_tpu.tools import invert as jinvert
 from grtrans_tpu.tools import pgriter as jpgriter
 from grtrans_tpu_torch.config import GrtransConfig
 from grtrans_tpu_torch.fluid import base as tbase
 from grtrans_tpu_torch.orchestrator import grtrans_run
 from grtrans_tpu_torch.testing import grmhd_dump
 from grtrans_tpu_torch.tools import geodebug as tdebug
+from grtrans_tpu_torch.tools import emitter_observer as teo
+from grtrans_tpu_torch.tools import invert as tinvert
 from grtrans_tpu_torch.tools import pgriter as tpgriter
 
 torch.set_num_threads(1)   # the suite runs in parallel worker processes
@@ -138,3 +153,122 @@ def test_pgriter_through_a_loaded_model_loads_it_once(monkeypatch):
     np.testing.assert_allclose(np.array(hist), np.array(ref[2]), rtol=1e-8)
     with pytest.raises(ValueError, match="fargs"):
         tpgriter.flux_at(tcfg, 1.0, param="n0", model=model, device="cpu")
+
+
+def test_emitter_observer_recovers_the_point_as_jax_does():
+    """tests/test_tools.py::test_emitter_observer in the port: the point
+    on the ray of (4.1, 2.3) at r = 8 (grtrans_tpu's, which the port's
+    _point_at_u reproduces to 1e-10), searched from (4.5, 1.9)."""
+    a, mu0, ustar = 0.9, float(np.cos(np.deg2rad(45.0))), 1.0 / 8.0
+    ab_true = (4.1, 2.3)
+    mu_c, ph_c, ok = jeo._point_at_u(a, mu0, jnp.asarray(ab_true[0]),
+                                     jnp.asarray(ab_true[1]), ustar)
+    tmu, tph, tok = teo._point_at_u(
+        a, mu0, *(torch.tensor(v, dtype=torch.float64) for v in ab_true),
+        ustar)
+    assert bool(ok) and bool(tok)
+    np.testing.assert_allclose([tmu.item(), tph.item()],
+                               [float(mu_c), float(ph_c)], rtol=1e-10)
+    guess = (ab_true[0] + 0.4, ab_true[1] - 0.4)
+    res = teo.run(ustar, float(mu_c), float(-ph_c), guess, a=a, mu0=mu0,
+                  device="cpu")
+    assert res.fun < 1e-6
+    np.testing.assert_allclose(res.x, ab_true, atol=0.05)
+    ref = jeo.run(ustar, float(mu_c), float(-ph_c), guess, a=a, mu0=mu0)
+    np.testing.assert_allclose(res.x, ref.x, rtol=0, atol=1e-6)
+
+
+INV_KW = dict(fname="SARIAF", ename="POLSYNCHTH", iname="quadrature",
+              freq=2.3e11, mbh=4e6, nn=(4, 4, 16),
+              gridvals=(-12.0, 12.0, -12.0, 12.0),
+              fixed=dict(mu0=0.5, t0=1.6e11, beta=10.0))
+
+
+def _target():
+    with torch.no_grad():
+        problem = tinvert.InverseProblem(**INV_KW, device="cpu")
+        return problem.render(dict(spin=0.9, n0=4e7)).numpy()
+
+
+def test_fit_image_matches_jax():
+    """Three Adam steps fitting (spin, n0) from (0.8, 3e7): the atanh and
+    log transforms, the loss, optax's Adam and the best-step bookkeeping,
+    against grtrans_tpu's fit_image on the same target."""
+    target = _target()
+    init = dict(spin=0.8, n0=3e7)
+    ours, losses = tinvert.fit_image(
+        tinvert.InverseProblem(**INV_KW, device="cpu"), target, init,
+        steps=3, lr=0.05)
+    ref, ref_losses = jinvert.fit_image(jinvert.InverseProblem(**INV_KW),
+                                        jnp.asarray(target), init, steps=3,
+                                        lr=0.05)
+    assert set(ours) == set(ref)
+    for k in ours:
+        assert ours[k] == pytest.approx(ref[k], rel=1e-8), k
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-8)
+    # pixel chunks accumulate the same gradient, to the rounding of a
+    # batch of another length (PyTorch's CPU exp and log round the last
+    # elements of a vector differently; measured 8.7e-11 on the losses)
+    chunked, chunk_losses = tinvert.fit_image(
+        tinvert.InverseProblem(**INV_KW, device="cpu"), target, init,
+        steps=3, lr=0.05, chunk=6)
+    for k in ours:
+        assert chunked[k] == pytest.approx(ours[k], rel=1e-9), k
+    np.testing.assert_allclose(chunk_losses, losses, rtol=1e-9)
+
+
+def test_fit_image_cosine_schedule_is_optax_s():
+    """lr_end: CosineAnnealingLR(T_max=steps, eta_min=lr_end) gives the
+    rates of optax.cosine_decay_schedule(lr, steps, alpha=lr_end / lr)."""
+    import optax
+    lr, lr_end, steps = 0.1, 0.01, 7
+    opt = torch.optim.Adam([torch.zeros(1, requires_grad=True)], lr=lr)
+    sched = torch.optim.lr_scheduler.CosineAnnealingLR(opt, T_max=steps,
+                                                       eta_min=lr_end)
+    rates = []
+    for _ in range(steps):
+        rates.append(opt.param_groups[0]["lr"])
+        opt.step()
+        sched.step()
+    ref = optax.cosine_decay_schedule(lr, steps, alpha=lr_end / lr)
+    np.testing.assert_allclose(rates, [float(ref(i)) for i in range(steps)],
+                               rtol=1e-12)
+
+
+def test_fit_image_refuses_an_all_nan_gradient(monkeypatch):
+    """Partial NaNs are zeroed (as in grtrans_tpu); a step whose every
+    gradient entry is NaN raises instead of stepping on zeros."""
+    problem = tinvert.InverseProblem(**INV_KW, device="cpu")
+    target = np.ones((16, 4))
+    nan = float("nan")
+    monkeypatch.setattr(problem, "render", lambda p, pix=None: torch.ones(
+        16, 4, dtype=torch.float64) * p["n0"] * torch.where(
+            p["spin"] > 0, p["spin"] * nan, p["spin"]))
+    with pytest.raises(FloatingPointError, match="every gradient"):
+        tinvert.fit_image(problem, target, dict(spin=0.8, n0=3e7), steps=2)
+    # a finite render whose spin gradient is NaN (0 * NaN through where)
+    monkeypatch.setattr(problem, "render", lambda p, pix=None: torch.ones(
+        16, 4, dtype=torch.float64) * (p["n0"] / 3e7) + torch.where(
+            p["spin"] > 1.0, p["spin"] * nan, 0.0))
+    fitted, losses = tinvert.fit_image(problem, target,
+                                       dict(spin=0.8, n0=2e7), steps=2)
+    assert fitted["spin"] == pytest.approx(0.8, rel=1e-12)
+    assert losses[1] < losses[0] and np.isfinite(losses).all()
+
+
+def test_geometry_only_fit_caches_the_model_by_its_load_kwargs(monkeypatch):
+    """A (spin, mu0) fit loads its model once for a set of load kwargs and
+    again for another; a fit of a model parameter loads every render."""
+    loads = []
+    real = tbase._REGISTRY["SARIAF"]
+    monkeypatch.setitem(tbase._REGISTRY, "SARIAF",
+                        lambda **kw: loads.append(kw["n0"]) or real(**kw))
+    problem = tinvert.InverseProblem(**dict(INV_KW, fixed=dict(n0=4e7)),
+                                     device="cpu")
+    with torch.no_grad():
+        for spin in (0.5, 0.6):
+            problem.render(dict(spin=spin, mu0=0.5))
+        problem.fixed = dict(n0=5e7)
+        problem.render(dict(spin=0.5, mu0=0.5))
+        problem.render(dict(spin=0.5, mu0=0.5, n0=6e7))
+    assert loads == [4e7, 5e7, 6e7]
