@@ -130,12 +130,36 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      launch a chunk), checked the same way (the CPU comparison on a
      32x24x16 snapshot);
  24. path (c), tools.emitter_observer.run on the card: (4.1, 2.3)
-     recovered within 0.05, within 1e-6 of the same search on the CPU.
-The line before the last is a JSON object of the kernels (and of the
-gradient paths; no NaN token: a non-finite number is null); the last line
-is {"ok": true, "device": {...}}.
+     recovered within 0.05, within 1e-6 of the same search on the CPU;
+ 25. the FFJET flagship of phase 4 at prec="mixed" (float32 trace with the
+     inversions at every 4th point, fluid, coefficients and march; float64
+     landmarks, sums, affine parameter and image), launches counted: float32
+     quad_gather alone (FFJet's float32 table, the POLSYNCHPL cutoff table),
+     no float64 gather, no twin; the image float64 and within 2e-3 of
+     max|I| of phase 4's; warm mixed and float64 frames in turns (f64,
+     mixed, mixed, f64) with the peak memory of each; the float32 kernel
+     timed on the mixed frame's own index stream;
+ 26. the HARM3D frame of phase 12 at prec="mixed": one quad_gather_rows
+     launch of the float32 kernel on the float32 stack a frame, no float64
+     gather, no twin; the image within 2e-3 of phase 12's; warm frames of
+     both in turns; the float32 kernel timed on the frame's index stream;
+ 27. the card against the port's CPU at prec="mixed" (FFJET flagship
+     camera, SARIAF + POLSYNCHTH, HARM3D on a 32x24x16 snapshot; 16x16 x
+     64; 2e-3 of max|I|); InverseProblem(prec="mixed") on the flagship
+     camera at 16x16 x 64, d(loss)/d(spin, mu0) at (0.998, 0.906) finite
+     and within 1e-2 of the float64 gradient, launches counted (float32
+     quad_gather and quad_gather_bwd_w alone); the mu0 gradients of
+     THICKDISK, MB09, KORAL and KORAL3D (tests/test_torch_gradient_zoo.py's
+     set-up) on the card, finite, within 1e-2 of central differences there
+     and within 1e-3 of the CPU's; quad_gather_bwd_w's float32
+     instantiation against its twin at phase 21's shape.
+The line before the last is a JSON object of the kernels, the float32
+instantiations of the mixed paths among them (and of the gradient and
+mixed paths; no NaN token: a non-finite number is null); the last line is
+{"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -280,13 +304,17 @@ TWINS = ("quad_gather_ref", "quad_gather_rows_ref", "quad_gather_bwd_w_ref",
          "quad_gather_rows_bwd_w_ref")
 
 
+# the wrappers, whose launches are counted, each by dtype too
+WRAPPERS = ("quad_gather", "quad_gather_rows", "quad_gather_bwd_w",
+            "quad_gather_rows_bwd_w")
+
+
 def reset_counts(qg):
-    qg.quad_gather.launches = 0
     qg.quad_gather.launches_by_kernel.clear()
-    qg.quad_gather_rows.launches = 0
     qg.quad_gather_rows.launches_by_kernel.clear()
-    qg.quad_gather_bwd_w.launches = 0
-    qg.quad_gather_rows_bwd_w.launches = 0
+    for name in WRAPPERS:
+        getattr(qg, name).launches = 0
+        getattr(qg, name).launches_by_dtype.clear()
     for name in TWINS:
         getattr(qg, name).calls = 0
 
@@ -294,13 +322,15 @@ def reset_counts(qg):
 def read_counts(qg):
     by, rows = (qg.quad_gather.launches_by_kernel,
                 qg.quad_gather_rows.launches_by_kernel)
-    return dict(quad_gather=qg.quad_gather.launches, tiled=by["tiled"],
-                wide=by["wide"], generic=by["generic"],
-                quad_gather_rows=qg.quad_gather_rows.launches,
-                rows_tiled=rows["tiled"], rows_simple=rows["simple"],
-                quad_gather_bwd_w=qg.quad_gather_bwd_w.launches,
-                quad_gather_rows_bwd_w=qg.quad_gather_rows_bwd_w.launches,
-                twin_calls=sum(getattr(qg, name).calls for name in TWINS))
+    counts = dict(tiled=by["tiled"], wide=by["wide"], generic=by["generic"],
+                  rows_tiled=rows["tiled"], rows_simple=rows["simple"],
+                  twin_calls=sum(getattr(qg, name).calls for name in TWINS))
+    for name in WRAPPERS:
+        wrapper = getattr(qg, name)
+        counts[name] = wrapper.launches
+        for dt in ("f32", "f64"):
+            counts[f"{name}_{dt}"] = wrapper.launches_by_dtype[dt]
+    return counts
 
 
 def rows_bound_ms(idx, w, ns, nc, nf):
@@ -762,7 +792,8 @@ def counted_run(qg, dev, name, kw, model=None):
     rerun = np.abs(again.ivals - x.ivals).max()
     ncams = x.ivals.shape[2]
     nn = kw["nn"]
-    print(f"{name} {nn[0]}x{nn[1]}x{nn[2]} x {ncams} cameras, f64: first "
+    print(f"{name} {nn[0]}x{nn[1]}x{nn[2]} x {ncams} cameras, "
+          f"{kw.get('prec', 'f64')}: first "
           f"{first_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms "
           f"({ncams * nn[0] * nn[1] / warm_s / 1e6:.6f} Mrays/s); "
           f"launches {counted_run.counts}; peak memory "
@@ -1582,7 +1613,7 @@ def bwd_bound_ms(idx, nc, nf, dtype):
 
 def check_bwd(qg, name, table, idx, g, nc, nf):
     """The weights' backward kernel against its plain twin on the card
-    (1e-14 of max|twin|, no out-of-range flag), then CUDA event times in
+    (KERNEL_TOL of max|twin|, no out-of-range flag), then CUDA event times in
     the order plain, library, kernel, kernel, library, plain.  The library
     yardstick is the backward of embedding_bag(..., per_sample_weights=w,
     mode="sum") with respect to w (the forward left out: its graph is
@@ -1599,10 +1630,11 @@ def check_bwd(qg, name, table, idx, g, nc, nf):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     scale = ref.abs().max().item()
+    tol = KERNEL_TOL[table.dtype]
     print(f"{name}: max|kernel - plain| {err:.3e} (max|plain| {scale:.3e}, "
-          f"bar 1e-14 of it)")
-    if not err <= 1e-14 * scale:
-        raise AssertionError(f"{name}: {err} > 1e-14 * {scale}")
+          f"bar {tol:g} of it)")
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: {err} > {tol} * {scale}")
     if qg.error_flag(table.device).item() != 0:
         raise AssertionError(f"{name}: out-of-range flag set")
     bag_idx = (idx.long().reshape(n, r, 1) * nc
@@ -1927,6 +1959,273 @@ def emitter_phase(dev):
     return dict(wall_s=wall, nfev=int(res.nfev))
 
 
+MIXED_RTOL = 2e-3      # mixed vs f64, whole image, of max|I| (test_precision)
+MIXED_GRAD_RTOL = 1e-2  # the mixed gradient vs f64's (16x16 x 64)
+ZOO_GRAD = {           # tests/test_torch_gradient_zoo.py's part-A models
+    "THICKDISK": ("THICKDISK", "thickdisk_dump", (16, 12, 8)),
+    "MB09": ("MB09", "mb09_dump", (16, 12, 8)),
+    "KORAL": ("KORAL", "koral_dump", (24, 12)),
+    "KORAL3D": ("KORAL3D", "koral_dump", (24, 12, 6)),
+}
+ZOO_CPU_RTOL = 1e-3    # card vs CPU, the part-A mu0 gradients
+
+
+def warm_pair(render, dev):
+    """Warm walls (ms) and peak memory (GiB) of render("f64") and
+    render("mixed"), in the order f64, mixed, mixed, f64 in this call."""
+    walls, peaks = {"f64": [], "mixed": []}, {}
+    for prec in ("f64", "mixed", "mixed", "f64"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        render(prec)
+        torch.cuda.synchronize()
+        walls[prec].append((time.perf_counter() - t0) * 1e3)
+        peaks[prec] = max(peaks.get(prec, 0.0),
+                          torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    return walls, peaks
+
+
+def mixed_error(name, ours, ref, imax):
+    """max|ours - ref| / imax (max|I| of ref), held to MIXED_RTOL."""
+    ours = torch.as_tensor(ours).cpu()
+    ref = torch.as_tensor(ref).cpu()
+    if not torch.isfinite(ours).all():
+        raise AssertionError(f"{name}: image not finite")
+    err = ((ours - ref).abs().max() / imax).item()
+    print(f"{name}: max|mixed - f64| / max|I| {err:.3e} (bar {MIXED_RTOL})")
+    if not err <= MIXED_RTOL:
+        raise AssertionError(f"{name}: mixed vs f64 {err}")
+    return err
+
+
+def mixed_flagship_phase(dev, qg, flagship):
+    """Phase 25: the FFJET flagship of phase 4 at prec="mixed"."""
+    from grtrans_tpu_torch.fluid import ffjet
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+
+    cfg64, model, ref = flagship["cfg"], flagship["model"], flagship["ivals"]
+    cfg = dataclasses.replace(cfg64, prec="mixed")
+    reset_counts(qg)
+    t0 = time.perf_counter()
+    ivals, _, _ = grtrans_run(cfg, model, device=dev)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(qg)
+    if (counts["quad_gather_f32"] < 1 or counts["quad_gather_f64"]
+            or counts["quad_gather_rows"] or counts["twin_calls"]):
+        raise AssertionError(f"mixed flagship launches {counts}: expected "
+                             "float32 quad_gather alone, no twin")
+    if qg.error_flag(dev).item() != 0:
+        raise AssertionError("mixed flagship: out-of-range table index")
+    if ivals.dtype != torch.float64 or tuple(ivals.shape) != tuple(
+            ref.shape):
+        raise AssertionError(f"mixed flagship image {ivals.dtype} "
+                             f"{tuple(ivals.shape)}")
+    err = mixed_error("mixed flagship 100x100x400 vs phase 4", ivals, ref,
+                      ref[..., 0].abs().max().item())
+    walls, peaks = warm_pair(lambda prec: grtrans_run(
+        cfg if prec == "mixed" else cfg64, model, device=dev), dev)
+    print(f"mixed flagship: first {first_ms:.1f} ms; warm frames (ms) "
+          f"f64 {walls['f64']}, mixed {walls['mixed']}; peak GiB {peaks}; "
+          f"launches {counts}")
+    # the float32 kernel on the mixed frame's own index stream
+    frame_args = []
+    wrapper = ffjet.quad_gather
+
+    def keep(*args):
+        frame_args.append(args)
+        return wrapper(*args)
+
+    ffjet.quad_gather = keep
+    try:
+        grtrans_run(cfg, model, device=dev)
+    finally:
+        ffjet.quad_gather = wrapper
+    table, idx, w, nc, nf = frame_args[0]
+    if table.dtype != torch.float32:
+        raise AssertionError(f"mixed flagship sampled a {table.dtype} table")
+    name = "ffjet f32, mixed frame's rows"
+    kerr = compare_gather(qg, name, table, idx, w, nc, nf)
+    times = dict(time_gather(qg, name, table, idx, w, nc, nf),
+                 max_abs_err=kerr)
+    return counts, times, dict(image_err=err, first_ms=first_ms,
+                               warm_ms=walls, peak_gib=peaks)
+
+
+def mixed_snapshot_phase(dev, qg, model, image64):
+    """Phase 26: the HARM3D frame of phase 12 at prec="mixed"."""
+    from grtrans_tpu_torch.api import Grtrans
+    from grtrans_tpu_torch.fluid import grmhd3d
+
+    kw = snapshot_kwargs("HARM3D", NN)
+    mixed = dict(kw, prec="mixed")
+    x, _ = counted_run(qg, dev, "HARM3D snapshot, mixed", mixed, model=model)
+    counts = counted_run.counts
+    if (counts["quad_gather_rows"] != 1 or counts["quad_gather_rows_f32"] != 1
+            or counts["quad_gather"] or counts["twin_calls"]):
+        raise AssertionError(f"mixed HARM3D launches {counts}: expected one "
+                             "float32 quad_gather_rows launch, no twin")
+    if x.ivals.dtype != np.float64:
+        raise AssertionError(f"mixed HARM3D image {x.ivals.dtype}")
+    err = mixed_error("mixed HARM3D 100x100x400 vs phase 12", x.ivals,
+                      image64, np.abs(image64[:, 0]).max())
+    walls, peaks = warm_pair(lambda prec: Grtrans(
+        **(mixed if prec == "mixed" else kw)).run(model=model), dev)
+    print(f"mixed HARM3D: warm frames (ms) f64 {walls['f64']}, mixed "
+          f"{walls['mixed']}; peak GiB {peaks}")
+    frame_args = []
+    wrapper = grmhd3d.quad_gather_rows
+
+    def keep(*args):
+        frame_args.append(args)
+        return wrapper(*args)
+
+    grmhd3d.quad_gather_rows = keep
+    try:
+        Grtrans(**mixed).run(model=model)
+    finally:
+        grmhd3d.quad_gather_rows = wrapper
+    tbl, idx, w, nc, nf = frame_args[0]
+    if tbl.dtype != torch.float32:
+        raise AssertionError(f"mixed HARM3D sampled a {tbl.dtype} table")
+    times = check_rows(qg, "snapshot R=4 f32, mixed frame's rows", tbl, idx,
+                       w, nc, nf)
+    return counts, times, dict(image_err=err, warm_ms=walls, peak_gib=peaks)
+
+
+def mixed_card_vs_cpu_phase(dev, qg):
+    """Phase 27: the card against the port's CPU at prec="mixed" (FFJET,
+    SARIAF + POLSYNCHTH, HARM3D at 16x16 x 64); the mixed gradient of the
+    FFJET flagship camera at 16x16 x 64 against the f64 one on the card;
+    the part-A mu0 gradients (THICKDISK, MB09, KORAL, KORAL3D) on the card
+    against central differences there and against the CPU's."""
+    from grtrans_tpu_torch import convert
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid import ffjet
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    from grtrans_tpu_torch.testing import grmhd_dump
+    from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
+    from grtrans_tpu_torch.tools.invert import InverseProblem
+
+    rec = {}
+    dump = grmhd_dump.harm3d_dump(32, 24, 16, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        dfile = Path(tmp) / "ffjet.bin"
+        write_ffjet_dump(dfile, nx=FFJET_NX, seed=SEED)
+        grids, fields = ffjet.load_ffjet_file(dfile)
+        cases = {
+            "FFJET": (flagship_config(GrtransConfig, dfile, GRAD_NN),
+                      lambda d: convert.ffjet_from_arrays(grids, fields, d)),
+            "SARIAF": (GrtransConfig(**dict(riaf_kwargs(GRAD_NN, "formal"),
+                                            ename="POLSYNCHTH", nfreq=1,
+                                            fmin=2.3e11, fmax=2.3e11)),
+                       lambda d: None),
+            "HARM3D": (GrtransConfig(**snapshot_kwargs("HARM3D", GRAD_NN)),
+                       lambda d: load_fluid_model("HARM3D", device=d,
+                                                  dump=dump)),
+        }
+        for name, (cfg64, make) in cases.items():
+            cfg = dataclasses.replace(cfg64, prec="mixed")
+            gpu, _, _ = grtrans_run(cfg, make(dev), device=dev)
+            cpu, _, _ = grtrans_run(cfg, make("cpu"), device="cpu")
+            err = ((gpu.cpu() - cpu).abs().max()
+                   / cpu[..., 0].abs().max()).item()
+            print(f"{name} mixed {GRAD_NN}: card vs CPU max|diff| / max|I| "
+                  f"{err:.3e} (bar {MIXED_RTOL})")
+            if gpu.dtype != torch.float64 or not err <= MIXED_RTOL:
+                raise AssertionError(f"{name} mixed card vs CPU {err}")
+            rec[f"{name} card vs CPU"] = err
+
+        # the mixed gradient of step 9 on the flagship camera
+        grads, counts = {}, None
+        for prec in ("f64", "mixed"):
+            prob = InverseProblem(
+                fname="FFJET", ename="POLSYNCHPL", iname="formal",
+                freq=3.45e11, mbh=3.4e9, nn=GRAD_NN,
+                gridvals=(-40.0, 20.0, -20.0, 40.0),
+                fixed=dict(dfile=str(dfile), ntscl=2.0, nrscl=70.0),
+                uout=FLAGSHIP_UOUT, device=dev, prec=prec)
+            p = {k: torch.tensor(v, dtype=torch.float64, device=dev,
+                                 requires_grad=True)
+                 for k, v in (("spin", 0.998), ("mu0", 0.906))}
+            reset_counts(qg)
+            loss = prob.render(p).abs().sum() / (prob.npix * 4)
+            loss.backward()
+            torch.cuda.synchronize()
+            if prec == "mixed":
+                counts = read_counts(qg)
+            grads[prec] = {k: v.grad.item() for k, v in p.items()}
+    rel = {k: abs(grads["mixed"][k] - v) / abs(v)
+           for k, v in grads["f64"].items()}
+    print(f"mixed gradient {GRAD_NN} at (0.998, 0.906): mixed "
+          f"{grads['mixed']}, f64 {grads['f64']}, rel {rel} (bar "
+          f"{MIXED_GRAD_RTOL}); launches {counts}")
+    if not all(np.isfinite(v) and rel[k] <= MIXED_GRAD_RTOL
+               for k, v in grads["mixed"].items()):
+        raise AssertionError(f"mixed gradient {grads}")
+    if (counts["quad_gather_bwd_w_f32"] < 1 or counts["quad_gather_bwd_w_f64"]
+            or counts["quad_gather_f64"] or counts["twin_calls"]):
+        raise AssertionError(f"mixed gradient launches {counts}")
+    rec.update(mixed_grad=grads, mixed_grad_rel=rel)
+
+    # part A on the card: finite, against central differences and the CPU
+    h = GRAD_FD_STEPS["mu0"]
+    for name, (fname, maker, shape) in ZOO_GRAD.items():
+        snap = getattr(grmhd_dump, maker)(*shape)
+        got = {}
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            prob = InverseProblem(
+                fname=fname, ename="POLSYNCHTH", mbh=4.3e6, nn=(8, 8, 32),
+                uout=0.04, gridvals=(-15.0, 15.0, -15.0, 15.0),
+                fixed=dict(dump=snap),
+                source=dict(mdot=4e13, mu=0.25, gmin=10.0), device=where)
+
+            def loss(mu0):
+                return prob.render({"spin": torch.tensor(
+                    grmhd_dump.A, dtype=torch.float64, device=where),
+                    "mu0": mu0}).abs().sum()
+
+            mu0 = torch.tensor(0.6, dtype=torch.float64, device=where,
+                               requires_grad=True)
+            loss(mu0).backward()
+            with torch.no_grad():
+                fd = (loss(torch.tensor(0.6 + h, dtype=torch.float64,
+                                        device=where))
+                      - loss(torch.tensor(0.6 - h, dtype=torch.float64,
+                                          device=where))).item() / (2 * h)
+            got[key] = (mu0.grad.item(), fd)
+        ad, fd = got["card"]
+        fd_rel = abs(ad - fd) / abs(fd)
+        cpu_rel = abs(ad - got["cpu"][0]) / abs(got["cpu"][0])
+        print(f"{name} d/dmu0 on the card {ad:.9e}, central difference "
+              f"{fd:.9e} (rel {fd_rel:.2e}, bar {GRAD_FD_RTOL}); CPU "
+              f"{got['cpu'][0]:.9e} (rel {cpu_rel:.2e}, bar {ZOO_CPU_RTOL})")
+        if not (np.isfinite(ad) and fd_rel <= GRAD_FD_RTOL
+                and cpu_rel <= ZOO_CPU_RTOL):
+            raise AssertionError(f"{name} mu0 gradient {got}")
+        rec[f"{name} mu0"] = dict(card=ad, fd=fd, cpu=got["cpu"][0],
+                                  fd_rel=fd_rel, cpu_rel=cpu_rel)
+    return counts, rec
+
+
+def bwd_f32_phase(dev, qg):
+    """quad_gather_bwd_w's float32 instantiation, which the mixed gradient
+    launches, against its twin at the f64 kernel's shape of phase 21 (FFJET
+    (16384, 4 x 9), 4e6 uniformly random rows)."""
+    rng = np.random.default_rng(SEED + 27)
+    ns = FFJET_NX ** 2
+    table = torch.as_tensor(rng.standard_normal((ns, 36)),
+                            dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(rng.integers(0, ns, N_QUERIES), dtype=torch.int32,
+                          device=dev)
+    g = torch.as_tensor(rng.standard_normal((N_QUERIES, 9)),
+                        dtype=torch.float32, device=dev)
+    return check_bwd(qg, "quad_gather_bwd_w f32, random rows", table, idx, g,
+                     4, 9)
+
+
 def finite_or_none(obj):
     """obj with every non-finite float replaced by None (a JSON null), so
     that no line carries a bare NaN token."""
@@ -2015,13 +2314,21 @@ def run(dev):
     paths["pgriter_harm3d"] = pgriter_phase(dev, qg, snapshot)
     paths["mesh_ffjet"], paths["slab_harm3d"], slabs = mesh_phase(
         dev, qg, flagship, snapshot, snapshot_image, frame_times)
-    del flagship
     bwd = bwd_kernel_phase(dev, qg)
     paths["fwdbwd_ffjet"], fwdbwd = fwdbwd_phase(dev, qg)
     paths["grad_harm3d"], grad_harm3d = harm3d_grad_phase(dev, qg, snapshot)
-    del snapshot
     emitter = emitter_phase(dev)
     grad_paths = ("fwdbwd_ffjet", "grad_harm3d")
+    # 25-27. prec="mixed"
+    paths["mixed_ffjet"], mixed_frame, mixed_flagship = mixed_flagship_phase(
+        dev, qg, flagship)
+    del flagship
+    paths["mixed_harm3d"], mixed_rows, mixed_snapshot = mixed_snapshot_phase(
+        dev, qg, snapshot, snapshot_image)
+    del snapshot
+    paths["mixed_grad_ffjet"], mixed_cpu = mixed_card_vs_cpu_phase(dev, qg)
+    bwd["quad_gather_bwd_w f32"] = bwd_f32_phase(dev, qg)
+    mixed_paths = ("mixed_ffjet", "mixed_harm3d", "mixed_grad_ffjet")
 
     main = shapes["ffjet f64"]
     wide = shapes["phatdisk f64"]
@@ -2068,10 +2375,29 @@ def run(dev):
         "bound_by": bwd[name]["bound_by"],
         "library_ms": bwd[name]["library"]} for name, replaces in (
             ("quad_gather_bwd_w", "grtrans_tpu/ops/pallas_gather.py:49"),
-            ("quad_gather_rows_bwd_w", "grtrans_tpu/fluid/grmhd3d.py:212"))],
+            ("quad_gather_rows_bwd_w", "grtrans_tpu/fluid/grmhd3d.py:212"))]
+        + [{
+        "name": name + "_f32", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(paths[p][name + "_f32"] for p in mixed_paths),
+        "launches_by_path": {p: paths[p][name + "_f32"]
+                             for p in mixed_paths},
+        "max_abs_err": t["max_abs_err"], "ms": t["kernel"],
+        "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library"]}
+            for name, replaces, t in (
+                ("quad_gather", "grtrans_tpu/ops/pallas_gather.py:49",
+                 mixed_frame),
+                ("quad_gather_rows", "grtrans_tpu/fluid/grmhd3d.py:212",
+                 mixed_rows),
+                ("quad_gather_bwd_w", "grtrans_tpu/ops/pallas_gather.py:49",
+                 bwd["quad_gather_bwd_w f32"]))],
         "gradient_paths": {"fwdbwd_ffjet": fwdbwd,
                            "grad_harm3d": grad_harm3d,
-                           "emitter_observer": emitter}}),
+                           "emitter_observer": emitter},
+        "mixed_paths": {"ffjet_flagship": mixed_flagship,
+                        "harm3d_snapshot": mixed_snapshot,
+                        "card_vs_cpu_and_gradients": mixed_cpu}}),
                      allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

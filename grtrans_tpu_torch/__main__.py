@@ -4,16 +4,20 @@ ifile, render, and write the cameras to ofile (grtrans_program.f90,
 grtrans.f90:34-46):
 
     python -m grtrans_tpu_torch [files.in] [--device cuda|cpu]
+                                [--prec f64|mixed]
     python -m grtrans_tpu_torch --inputs inputs.in --output grtrans.out
 
 FITS when ofile ends in .fits, else the reference's raw binary layout
 (camera.f90:322-341).  The render runs on the card unless --device cpu
-asks for the CPU; without a card the default raises.  With debug=1 and
+asks for the CPU; without a card the default raises.  --prec mixed renders
+grtrans_tpu's mixed precision (GrtransConfig.prec, which the namelists do
+not carry; orchestrator.grtrans_run).  With debug=1 and
 i1 = i2 the chosen pixel's intermediates are also written to
 ofile + ".geodebug.npz" (tools.geodebug).
 """
 
 import argparse
+import dataclasses
 import sys
 
 import numpy as np
@@ -34,6 +38,8 @@ def main(argv=None):
     ap.add_argument("--output", help="output path (overrides files.in)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default: cuda)")
+    ap.add_argument("--prec", choices=("f64", "mixed"),
+                    help="precision of the render (default: f64)")
     args = ap.parse_args(argv)
 
     if torch.device(args.device).type == "cuda" \
@@ -47,6 +53,8 @@ def main(argv=None):
         if args.output:
             ofile = args.output
     cfg = nml.read_inputs(ifile)
+    if args.prec:
+        cfg = dataclasses.replace(cfg, prec=args.prec)
     ivals, ab, freqs = grtrans_run(cfg, device=args.device, verbose=True)
 
     if cfg.debug and cfg.i1 > 0 and cfg.i1 == cfg.i2:

@@ -1,10 +1,10 @@
 """The per-ray rendering pipeline, batched over all pixels (reference
 grtrans_driver.f90:57-465): fluid state -> comoving tetrad ->
 coefficients -> rotation and invariant scalings -> Stokes integration.
-Port of grtrans_tpu/driver.py in float64: every emissivity and ported
-integrator, the ray-integrating (standard=1) and the thin-disk
-single-point (standard=2) branches, the 19 extra diagnostic channels and
-the debug dump."""
+Port of grtrans_tpu/driver.py, in float64 or its mixed precision: every
+emissivity and integrator, the ray-integrating (standard=1) and the
+thin-disk single-point (standard=2) branches, the 19 extra diagnostic
+channels and the debug dump."""
 
 import math
 
@@ -19,6 +19,11 @@ from grtrans_tpu_torch.fluid.base import apply_source_params
 from grtrans_tpu_torch.geometry import kerr, tetrad
 from grtrans_tpu_torch.integrate import solvers
 from grtrans_tpu_torch.ops.interp import get_weight
+
+
+# prec="mixed": samples closer than this (relative) to the outer horizon
+# are left out of the float32 leg (render_rays)
+HOR_F32 = 1e-4
 
 
 def calc_emissivity(ename, nu, ei, ang, cosne, sp, gmin=None):
@@ -134,7 +139,8 @@ def _extra_channels(geo, fv, ei, j, K, prof, ok):
 
 
 def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
-                iname="lsoda", nvals=4, standard=1, extra=0, debug=False):
+                iname="lsoda", nvals=4, standard=1, extra=0, debug=False,
+                prec="f64"):
     """Observed Stokes for one camera and a list of frequencies.
 
     geo: GeodesicBundle; fv: FluidVars; ei: EmisInputs (cgs); freqs:
@@ -145,8 +151,16 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
     reference's debug=1 dump, grtrans_driver.f90:91-110, :341-427) --
     geodesic coordinates, fluid state, tetrad angles, coefficients and
     Stokes profiles of each frequency -- so that any pixel can be
-    integrated again on its own."""
+    integrated again on its own.
+
+    prec="mixed" (grtrans_tpu's mixed path) runs the tetrad projection,
+    the coefficients and the whole Stokes march in float32, with the
+    affine parameter handed to the march in float64 (the march forms the
+    Faraday phase in float64 and reduces it mod 2 pi before its float32
+    trig); the image comes back float64.  Single-point renders (standard=2
+    or one point a ray) stay float64."""
     single = standard == 2 or geo.x.shape[-2] == 1
+    mixed = prec == "mixed" and not single
     r = geo.x[..., 1]
     th = geo.x[..., 2]
     # sanitize the fluid four-vectors before the tetrad projection
@@ -156,13 +170,25 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
                          torch.tensor([1.0, 0.0, 0.0, 0.0], **like))
     b_safe = torch.where(okf[..., None], fv.b,
                          torch.tensor([0.0, 0.0, 0.0, 1.0], **like))
+    k = geo.k
+    if mixed:
+        r, th, alpha, beta, u_safe, b_safe, k = (
+            v.float() for v in (r, th, alpha, beta, u_safe, b_safe, k))
     s2xi, c2xi, ang, g, cosne, frame_ok = tetrad.comoving_ortho(
-        r, th, a, alpha[:, None], beta[:, None], mu0, u_safe, b_safe, geo.k)
+        r, th, a, alpha[:, None], beta[:, None], mu0, u_safe, b_safe, k)
     # fluid models produce NaN four-velocities where their flow is
     # unphysical; mask explicitly rather than rely on NaN propagation
     ok = (geo.valid & okf & frame_ok & torch.isfinite(g)
           & torch.isfinite(s2xi) & torch.isfinite(c2xi)
           & torch.isfinite(ang))
+    if mixed:
+        # a plunging ray's last sample lies 1e-6 r+ outside the horizon,
+        # where float32 holds r - r+ to a few percent and the projection
+        # onto the fluid frame (terms ~ 1 / Delta that cancel) gives any
+        # redshift; in float64 g -> 0 there and the sample emits nothing,
+        # so the float32 leg leaves out the samples within HOR_F32 r+
+        rh = kerr.horizon(a)
+        ok = ok & (r - rh > HOR_F32 * rh)
     s2xi = torch.where(ok, s2xi, 0.0)
     c2xi = torch.where(ok, c2xi, 1.0)
     ang = torch.where(ok, ang, math.pi / 2.0)
@@ -179,6 +205,14 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
             geo.k)
         chI, chd = interp_chandra(cosne2)
     ei, gmin_eff = apply_source_params(ei, sp)
+    if mixed:
+        # every cgs quantity fits float32 once the coefficient formulas
+        # form their dimensionless ratios first
+        ei = type(ei)(*(v.float() if torch.is_tensor(v) else v for v in ei))
+        if torch.is_tensor(gmin_eff):
+            gmin_eff = gmin_eff.float()
+        ang, cosne, s2xi, c2xi = (v.float() for v in (ang, cosne, s2xi,
+                                                      c2xi))
 
     dbg = {}
     if debug:
@@ -238,4 +272,6 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
                 dbg[f"prof_{kf}"] = prof
         out.append(res)
     ivals = torch.stack(out, dim=0)
+    if mixed:
+        ivals = ivals.double()
     return (ivals, dbg) if debug else ivals

@@ -1,0 +1,3 @@
+"""Emission, absorption and Faraday coefficients."""
+
+from grtrans_tpu_torch.emis import bb, framework, polsynch  # noqa: F401

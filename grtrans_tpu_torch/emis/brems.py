@@ -15,7 +15,11 @@ def brememis_heroic(nu, ne, T):
     (emis.f90:188-243)."""
     eps = 1e-32
     temp = T
-    rho = ne * 1.67219e-24
+    # rho^2 = (1.67219e-24 ne)^2 folded into the constants, and ne / nu
+    # formed first: 1.10e61 and nu^3 leave float32's range
+    c_ei = 1.10e61 * 1.67219e-24 ** 2
+    c_ee = 1.14e51 * 1.67219e-24 ** 2
+    nen2 = (ne / nu) ** 2
     sqrtt = temp.sqrt()
     thetae = pc.k * temp / (pc.m * pc.c2)
     sqth = thetae.sqrt()
@@ -31,10 +35,8 @@ def brememis_heroic(nu, ne, T):
         1.328 * thetae * (torch.log(1.123 * thetae) + 1.28))
     one_m_e = torch.where(arg < 1e-8, arg,
                           -torch.expm1(-arg.clamp_max(100.0)))
-    anu = (1.10e61 / sqrtt) * rho * rho * fei * one_m_e * tempfactor \
-        / nu ** 3 \
-        + (1.14e51 / sqrtt / temp) * rho * rho * fee * one_m_e \
-        * tempfactor / nu ** 2
+    anu = (c_ei / sqrtt) * nen2 / nu * fei * one_m_e * tempfactor \
+        + (c_ee / sqrtt / temp) * nen2 * fee * one_m_e * tempfactor
     anu = torch.where(arg > 100.0, 0.0, anu)
     return from_columns({0: anu * bnu(temp, nu), 4: anu})
 

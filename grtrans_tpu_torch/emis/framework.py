@@ -5,6 +5,7 @@ the observer's polarization basis and the Lorentz-invariant scalings
 import torch
 
 from grtrans_tpu_torch.emis.polsynch import NE
+from grtrans_tpu_torch.ops.interp import tsum
 
 
 def from_columns(columns):
@@ -44,3 +45,9 @@ def invariant_intensity(j, g, npow):
     """I_nu / nu^npow scaling of thin-disk surface emission
     (emis.f90:840-847)."""
     return j * (g ** npow)[..., None]
+
+
+def calc_opt_depth(lam, K, indx=0):
+    """Cumulative optical depth along the ray of coefficient column indx
+    of K, from the ray's first sample (emis.f90:786-795)."""
+    return tsum(lam, K[..., indx].abs())

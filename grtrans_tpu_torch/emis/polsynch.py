@@ -26,10 +26,23 @@ NUC_MIN = 1.0
 def bnu(T, nu):
     """Planck function with a Rayleigh-Jeans low-frequency branch
     (polsynchemis.f90:1014-1032)."""
+    # T = 0 (a sample off the grid) gives the floor; it takes T = 1 as its
+    # operand so that no infinite derivative reaches the backward pass
+    cold = T == 0
+    T = torch.where(cold, 1.0, T)
     x = pc.h * nu / (pc.k * T)
-    rj = 2.0 * nu * nu * pc.k * T / pc.c2
-    planck = 2.0 * pc.h * nu ** 3 / pc.c2 / torch.expm1(x.clamp_min(1e-6))
-    return torch.where(x < 1e-6, rj, planck).clamp_min(2.2e-16)
+    if nu.dtype == torch.float32:
+        # nu / c first: nu^3 leaves float32's range above 7e12 Hz
+        nuc = nu / pc.c
+        rj = 2.0 * nuc * nuc * pc.k * T
+        planck = 2.0 * pc.h / pc.c * nuc * nu * nu \
+            / torch.expm1(x.clamp_min(1e-6))
+    else:
+        rj = 2.0 * nu * nu * pc.k * T / pc.c2
+        planck = 2.0 * pc.h * nu ** 3 / pc.c2 \
+            / torch.expm1(x.clamp_min(1e-6))
+    return torch.where(cold, 2.2e-16,
+                       torch.where(x < 1e-6, rj, planck).clamp_min(2.2e-16))
 
 
 def _iix(x):
@@ -71,6 +84,16 @@ def _shgmfunc(x):
     return 0.43793091 * torch.log(1.0 + 0.00185777 * x ** 1.50316886)
 
 
+def _xarg(thetae, sth, omega0, nu):
+    """The Shcherbakov fits' argument thetae sqrt(sqrt 2 sin(theta) 1e3
+    omega0 / (2 pi nu)); where the root's argument is 0 (B = 0) it is 0
+    with a finite (zero) derivative."""
+    arg = math.sqrt(2.0) * sth * (1e3 * omega0 / (2.0 * math.pi * nu))
+    zero = arg == 0.0
+    return thetae * torch.where(zero, 0.0,
+                                torch.where(zero, 1.0, arg).sqrt())
+
+
 def _stack(*coefs):
     return torch.stack(torch.broadcast_tensors(*coefs), dim=-1)
 
@@ -83,7 +106,8 @@ def polsynchth(nu, n, b, T, theta):
     nu [Hz], n [cm^-3], b [G], T [K], theta = B-k pitch angle [rad]
     (tensors).  Returns (..., 11)."""
     thetae = pc.k * T / (pc.m * pc.c2) + THETAE_MIN
-    sth = torch.sin(theta)
+    # |sin|: float32's pi lies above pi, and its sine is -8.7e-8
+    sth = torch.sin(theta).abs()
     nuc = 3.0 * pc.e * b * sth / (4.0 * math.pi * pc.m * pc.c) \
         * thetae ** 2 + NUC_MIN
     xm = nu / nuc
@@ -99,8 +123,7 @@ def polsynchth(nu, n, b, T, theta):
     # Faraday rotation / conversion (Shcherbakov 2008 fits)
     wp2 = 4.0 * math.pi * n * pc.e ** 2 / pc.m
     omega0 = pc.e * b / (pc.m * pc.c)
-    xarg = thetae * torch.sqrt(math.sqrt(2.0) * sth
-                               * (1e3 * omega0 / (2.0 * math.pi * nu)))
+    xarg = _xarg(thetae, sth, omega0, nu)
     # clamp 1/thetae: for cold points K_n underflows and the ratios become
     # 0/0; the thetae <= 1e-2 branch replaces them anyway
     it = (1.0 / thetae).clamp_max(150.0)
@@ -149,7 +172,8 @@ def sympolemisth(nu, n, b, T, theta):
     """Pandya+2016 fits to thermal polarized synchrotron
     (polsynchemis.f90:915-1012); Faraday coefficients as in polsynchth."""
     thetae = pc.k * T / (pc.m * pc.c2) + THETAE_MIN
-    sth = torch.sin(theta)
+    # |sin|: float32's pi lies above pi, and its sine is -8.7e-8
+    sth = torch.sin(theta).abs()
     nuc = pc.e * b / (pc.m * pc.c * 2.0 * math.pi) + NUC_MIN
     x = nu / (2.0 / 9.0 * nuc * thetae ** 2 * sth)
     sx = x.sqrt()
@@ -172,17 +196,19 @@ def sympolemisth(nu, n, b, T, theta):
     ai, aq, av = ji / bb_, jq / bb_, jv / bb_
     wp2 = 4.0 * math.pi * n * pc.e ** 2 / pc.m
     omega0 = pc.e * b / (pc.m * pc.c)
-    xarg = thetae * torch.sqrt(math.sqrt(2.0) * sth
-                               * (1e3 * omega0 / (2.0 * math.pi * nu)))
+    xarg = _xarg(thetae, sth, omega0, nu)
     it = (1.0 / thetae).clamp_max(150.0)
     k2 = bessel.besselk2(it)
     gstep = 0.5 + 0.5 * torch.tanh((thetae - 1.0) / 0.05)
     rel = thetae > 1e-2
-    eps11m22 = _jffunc(xarg) * wp2 * omega0 ** 2 \
-        / (2.0 * math.pi * nu) ** 4 \
+    # dimensionless ratios first, as polsynchth: (2 pi nu)^4 ~ 1e48
+    # overflows float32 (prec="mixed")
+    otn = omega0 / (2.0 * math.pi * nu)
+    wptn = wp2 / (2.0 * math.pi * nu) ** 2
+    eps11m22 = _jffunc(xarg) * wptn * otn ** 2 \
         * torch.where(rel, bessel.besselk1(it) / k2 + 6.0 * thetae,
                       1.0 + 6.0 * thetae) * sth ** 2
-    eps12 = wp2 * omega0 / (2.0 * math.pi * nu) ** 3 * torch.cos(theta) \
+    eps12 = wptn * otn * torch.cos(theta) \
         * torch.where(rel, (bessel.besselk0(it) - gstep * _shgmfunc(xarg))
                       / k2, 1.0)
     rhov = 2.0 * math.pi * nu / pc.c * eps12

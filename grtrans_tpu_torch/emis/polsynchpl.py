@@ -136,7 +136,8 @@ def polsynchpl(nu, n, b, theta, p, gmin, gmax):
     [j(4), a(4), rho(3)] layout."""
     thsafe = 1e-10
     tanth = torch.tan(theta) + torch.sign(torch.cos(theta)) * thsafe
-    sinth = torch.sin(theta) + thsafe
+    # |sin|: float32's pi lies above pi, and its sine is -8.7e-8
+    sinth = torch.sin(theta).abs() + thsafe
     nubperp = pc.e * b / (pc.m * pc.c * 2.0 * math.pi) * sinth + 1e-10
     nucmin = 1.5 * nubperp * gmin ** 2
     nucmax = 1.5 * nubperp * gmax ** 2

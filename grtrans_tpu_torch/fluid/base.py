@@ -80,7 +80,12 @@ def scale_sim_units(mbh, mdotcgs, mdot_code, rho, p, bmag):
     safe = torch.where(rho > 0, rho, 1.0)
     pcgs = p * rhocgs / safe * pc.c ** 2
     tempcgs = pcgs / ncgs.clamp_min(1e-37) / pc.k
-    bcgs = bmag * (rhocgs / safe).sqrt() * pc.c * math.sqrt(4.0 * math.pi)
+    # rhocgs / rho is the density unit; at rho = 0 (a sample off the grid)
+    # its sqrt would be sqrt(0), whose derivative is infinite, so that
+    # sample takes the unit 1 and bcgs 0 (double where: finite gradient)
+    empty = rho == 0
+    bcgs = torch.where(empty, 0.0, bmag * torch.where(
+        empty, 1.0, rhocgs / safe).sqrt() * pc.c * math.sqrt(4.0 * math.pi))
     return ncgs, bcgs, tempcgs, rhocgs
 
 
@@ -97,19 +102,23 @@ def sigma_cut(bcgs, rhocgs, tempcgs, ncgs, sigcut):
 def monika_e(rho, p, b, rlow, rhigh):
     """Moscibrodzka+2016 R(beta) temperature-ratio prescription
     (fluid.f90:874-892); beta = p / (b^2 / 2) in code units."""
+    live = b > 0.0
+    b = torch.where(live, b, 1.0)     # the other branch's operand, finite
     beta = p / (b * b).clamp_min(1e-37) / 0.5
     b2 = beta * beta
-    return torch.where(b > 0.0,
-                       rhigh * b2 / (1.0 + b2) + rlow / (1.0 + b2), rhigh)
+    return torch.where(live, rhigh * b2 / (1.0 + b2) + rlow / (1.0 + b2),
+                       rhigh)
 
 
 def charles_e(rho, p, u, b, rlow, rhigh):
     """EHT-notes electron temperature (fluid.f90:814-843); p is the
     T_p + T_e type variable and u = T_p + 2 T_e (KORAL convention)."""
+    live = b > 0.0
+    b = torch.where(live, b, 1.0)
     beta = 2.0 * rho * pc.k * p / pc.mp / (b * b).clamp_min(1e-37)
     b2 = beta * beta
-    trat = torch.where(b > 0.0,
-                       rhigh * b2 / (1.0 + b2) + rlow / (1.0 + b2), rhigh)
+    trat = torch.where(live, rhigh * b2 / (1.0 + b2) + rlow / (1.0 + b2),
+                       rhigh)
     return u / (2.0 + trat)
 
 
@@ -123,7 +132,10 @@ def ressler_e(rho, kel):
 def werner_e(rho, bmag):
     """Werner+2018 dissipation fraction (fluid.f90:906-911)."""
     sig = bmag ** 2 / rho.clamp_min(1e-37) / 5.0
-    return 0.25 + 0.25 * (sig / (2.0 + sig)).sqrt()
+    frac = sig / (2.0 + sig)
+    live = frac != 0.0
+    return 0.25 + 0.25 * torch.where(
+        live, torch.where(live, frac, 1.0).sqrt(), 0.0)
 
 
 def nonthermale_b2(alpha, gmin, p1, bmagrho, bcgs):
@@ -279,6 +291,16 @@ def import_all_models():
                                          harm, harm3d, harmpi, hotspot,
                                          iharm, koral, mb09, sphacc,
                                          thickdisk)
+
+
+def get_fluid_vars(model, x, k, a):
+    """The model's state sampled at x with wavevector k (its `vals`)."""
+    return model.vals(x, k, a)
+
+
+def convert_fluid_vars(model, fv, sp):
+    """The model's emissivity inputs in cgs (its `convert`)."""
+    return model.convert(fv, sp)
 
 
 def load_fluid_model(name, *, device, **kwargs):

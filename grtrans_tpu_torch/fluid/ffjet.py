@@ -88,6 +88,9 @@ class FFJet(nn.Module):
         quad = np.stack([A, B0, A1, B1], axis=2)                # (nx,nx,4,9)
         self.register_buffer("fquad", torch.as_tensor(
             quad.reshape(nx * nx, 4 * len(self.FIELDS)), device=device))
+        # the table that float32 points (prec="mixed") sample: the float32
+        # quad_gather kernel reads half the bytes
+        self.register_buffer("fquad32", self.fquad.float())
 
     def vals(self, x, k, a):
         nx = self.nx
@@ -109,7 +112,8 @@ class FFJet(nn.Module):
         i00 = (lx2 * nx + lx1).reshape(-1)
         w = torch.stack([(1 - rd) * (1 - td), rd * (1 - td),
                          (1 - rd) * td, rd * td], dim=-1)
-        vals = quad_gather(self.fquad, i00, w.reshape(-1, 4), 4, 9)
+        table = self.fquad32 if r.dtype == torch.float32 else self.fquad
+        vals = quad_gather(table, i00, w.reshape(-1, 4), 4, 9)
         vals = vals.reshape(r.shape + (9,))
         fill = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0],
                             dtype=vals.dtype, device=vals.device)

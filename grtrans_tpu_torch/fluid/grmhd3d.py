@@ -67,13 +67,13 @@ def phi_pair_pack(st, phi_axis):
 def trilinear_rows(table, idxs, ws, pd, nf):
     """One quad_gather_rows launch for a trilinear sample of a
     phi-pair-packed table: idxs and ws are the R row indices (int32) and
-    corner weights of each sample, pd the phi fraction.  Returns
-    pd.shape + (nf,)."""
+    corner weights of each sample, pd the phi fraction; the weights take
+    the table's dtype.  Returns pd.shape + (nf,)."""
     idx = torch.stack(idxs, dim=-1).reshape(-1, len(idxs))
     wr = torch.stack(ws, dim=-1)
     w = torch.stack([wr * (1 - pd)[..., None], wr * pd[..., None]], dim=-1)
-    out = quad_gather_rows(table, idx.contiguous(),
-                           w.reshape(-1, len(idxs), 2).contiguous(), 2, nf)
+    out = quad_gather_rows(table, idx.contiguous(), w.reshape(
+        -1, len(idxs), 2).to(table.dtype).contiguous(), 2, nf)
     return out.reshape(pd.shape + (nf,))
 
 
@@ -125,12 +125,16 @@ class Grmhd3D(nn.Module):
 
     def _stacked_fields(self, dtype=torch.float64):
         """All FIELDS + extra3 grids stacked minor-most, phi-pair packed
-        and flattened to (nt * nx1*nx2*nx3, 2 nf).  Cached; invalidated by
-        _store / append_slice."""
+        and flattened to (nt * nx1*nx2*nx3, 2 nf), in `dtype` (float32 for
+        the points of prec="mixed", the float64 stack rounded).  Cached for
+        each dtype; invalidated by _store / append_slice."""
         names = self.stacked_names()
         nt = self.nt_slices
-        key = (nt, tuple(names), dtype)
+        key = (nt, tuple(names))
         if self._fstack_key != key:
+            self._fstacks = {}
+            self._fstack_key = key
+        if dtype not in self._fstacks:
             arrs = []
             for n in names:
                 g = self.f[n] if n in self.f else self.extra3[n]
@@ -138,9 +142,8 @@ class Grmhd3D(nn.Module):
                 # a static extra field on a time series
                 arrs.append(g.expand(nt, *g.shape[1:]))
             st = torch.stack(arrs, dim=-1)             # (nt, n1, n2, n3, nf)
-            self._fstack = phi_pair_pack(st, 3).to(dtype).contiguous()
-            self._fstack_key = key
-        return self._fstack, names
+            self._fstacks[dtype] = phi_pair_pack(st, 3).to(dtype).contiguous()
+        return self._fstacks[dtype], names
 
     def _query(self, x, a, time=0.0):
         """Per-sample interpolation geometry: grid indices, corner
@@ -203,9 +206,15 @@ class Grmhd3D(nn.Module):
         else:
             tind = ttd = None
 
-        ws = ((1 - rd) * (1 - td), (1 - rd) * td, rd * (1 - td), rd * td)
-        return dict(r=r, th=th, lx1=lx1, lx2=lx2, lx3=lx3, ws=ws, pdc=pd,
-                    tind=tind, ttd=ttd, damp=damp, outside=outside)
+        # the weights in the query's dtype, as the table is stacked in it
+        # (float32 under prec="mixed")
+        dt = r.dtype
+        ws = tuple(w.to(dt) for w in ((1 - rd) * (1 - td), (1 - rd) * td,
+                                      rd * (1 - td), rd * td))
+        return dict(r=r, th=th, lx1=lx1, lx2=lx2, lx3=lx3, ws=ws,
+                    pdc=pd.to(dt), tind=tind,
+                    ttd=None if ttd is None else ttd.to(dt),
+                    damp=damp.to(dt), outside=outside)
 
     def _gather_cols(self, table, NS, nx2, nx3, q, nf, own=None):
         """The trilinear sample of every field: one quad_gather_rows launch

@@ -152,7 +152,9 @@ class Harm(nn.Module):
         quad = pack_corners_2d(grid.reshape(nx1, nx2, len(FIELDS)).numpy())
         for name, t in (("uniqx1", uniqx1), ("uniqx2", uniqx2),
                         ("uniqr", uniqx1.exp()), ("uniqth", uniqth),
-                        ("fquad", torch.from_numpy(quad))):
+                        ("fquad", torch.from_numpy(quad)),
+                        # sampled by float32 points (prec="mixed")
+                        ("fquad32", torch.from_numpy(quad).float())):
             self.register_buffer(name, t.contiguous().to(device))
 
     def vals(self, x, k, a):
@@ -175,7 +177,9 @@ class Harm(nn.Module):
         td = td.clamp(0.0, 1.0)
         outside = ~(x1 > u1a)
 
-        vals = bilinear_packed(self.fquad, nx2, len(FIELDS), lx1, lx2, rd, td)
+        table = self.fquad32 if r.dtype == torch.float32 else self.fquad
+        vals = bilinear_packed(table, nx2, len(FIELDS), lx1, lx2,
+                               rd.to(r.dtype), td.to(r.dtype))
         col = dict(zip(FIELDS, vals.unbind(-1)))
         rho = torch.where(outside, 0.0, col["rho"])
         p = torch.where(outside, 1.0, col["p"])

@@ -440,7 +440,8 @@ class HarmPI(nn.Module):
         idx = ((ix1 * nx2 + ix2) * nx3 + ix3).reshape(-1, 1)
         nf = len(self.PFIELDS)
         vals = quad_gather_rows(self.fstack, idx.contiguous(),
-                                torch.ones((idx.shape[0], 1, 1), dtype=r.dtype,
+                                torch.ones((idx.shape[0], 1, 1),
+                                           dtype=self.fstack.dtype,
                                            device=r.device), 1, nf)
         col = dict(zip(self.PFIELDS, vals.reshape(r.shape + (nf,)).unbind(-1)))
         rho = torch.where(outside, 0.0, col["rho"]) * damp

@@ -181,7 +181,8 @@ class _KoralBase(nn.Module):
         """Nonthermal bins: R rows of the plain table a sample."""
         idx = torch.stack(idxs, dim=-1).reshape(-1, len(idxs))
         w = torch.stack(ws, dim=-1).reshape(-1, len(idxs), 1)
-        out = quad_gather_rows(self.fn, idx.contiguous(), w.contiguous(), 1,
+        out = quad_gather_rows(self.fn, idx.contiguous(),
+                               w.to(self.fn.dtype).contiguous(), 1,
                                self.nrelbin)
         return out.reshape(shape + (self.nrelbin,))
 
@@ -353,3 +354,7 @@ def _variant(name, region_id):
 load_koral3d_disk = _variant("KORAL3D_DISK", 1)
 load_koral3d_topjet = _variant("KORAL3D_TOPJET", 2)
 load_koral3d_botjet = _variant("KORAL3D_BOTJET", 3)
+# grtrans_tpu's names of the regions (its classes; here the loaders)
+Koral3DDisk = load_koral3d_disk
+Koral3DTopJet = load_koral3d_topjet
+Koral3DBotJet = load_koral3d_botjet

@@ -1,6 +1,7 @@
 """Semi-analytic Kerr null geodesics, batched over (pixel, point).
 
-Port of the float64 `trace`, `trace_polar` and `camera_delay` of
+Port of `trace` (float64 and prec="mixed", with its coarse Hermite
+fill), `trace_polar` and `camera_delay` of
 grtrans_tpu/geodesics/geokerr.py (a
 redesign of the reference geokerr, Dexter & Agol 2009): rays are sampled
 evenly in Mino time; u(lam) and mu(lam) come from one Biermann-Weierstrass
@@ -23,6 +24,7 @@ import torch
 
 from grtrans_tpu_torch.geometry import kerr
 from grtrans_tpu_torch.ops import polyroots
+from grtrans_tpu_torch.ops import scalar as sc
 from grtrans_tpu_torch.ops import weierstrass as wss
 from grtrans_tpu_torch.ops.intcast import to_int32
 from grtrans_tpu_torch.ops.quadrature import gl_tensors
@@ -33,6 +35,7 @@ HOR_EPS = 1e-6  # stop this far (in u) inside of the horizon u_+
 _TINY_U = 1e-37  # absolute backstop under the relative U floor
 _PHASE_WIN = 4   # segments kept in lam space at each end of the window
 _CUM_BLK = 16    # block width of the two-level prefix sum
+_FLAT_F32 = 1e-3  # float32: a segment whose u moves less takes the lam rule
 
 
 class GeodesicBundle(NamedTuple):
@@ -281,20 +284,25 @@ def _signs_and_counts(st, lam):
 
 
 def _blocked_cumsum(s):
-    """Prefix sum along the last axis as within-block sums of _CUM_BLK
-    segments plus exclusive block offsets (the two-level sum of
-    grtrans_tpu, kept for identical rounding structure)."""
+    """Prefix sum along the last axis, in float64 whatever the dtype of s,
+    as within-block sums of _CUM_BLK segments (in s's dtype) plus
+    exclusive float64 block offsets: the two-level sum of grtrans_tpu,
+    kept for identical rounding structure.  Under prec="mixed" the
+    segments are float32 and the running sums float64, so that the phase
+    error stays at the per-segment level instead of growing along the
+    ray."""
     n = s.shape[-1]
+    f64 = torch.float64
     if n < 2 * _CUM_BLK:
-        return s.cumsum(-1)
+        return s.to(f64).cumsum(-1)
     pad = (-n) % _CUM_BLK
     if pad:
         s = torch.cat([s, s.new_zeros(s.shape[:-1] + (pad,))], dim=-1)
     nb = s.shape[-1] // _CUM_BLK
     within = s.reshape(s.shape[:-1] + (nb, _CUM_BLK)).cumsum(-1)
-    bsum = within[..., -1]
+    bsum = within[..., -1].to(f64)
     off = bsum.cumsum(-1) - bsum
-    return (off[..., None] + within).reshape(s.shape)[..., :n]
+    return (off[..., None] + within.to(f64)).reshape(s.shape)[..., :n]
 
 
 def _cumulative_phases(st, a, l, lam_grid, u_grid=None, mu_grid=None,
@@ -325,11 +333,11 @@ def _cumulative_phases(st, a, l, lam_grid, u_grid=None, mu_grid=None,
         if mu_grid is None:
             mu_grid = _eval_mu(st, lam_grid)
         su_g, smu_g, _, _ = _signs_and_counts(st, lam_grid)
-        du_g = su_g * _u_eval(st.cU, u_grid).clamp_min(0.0).sqrt()
+        du_g = su_g * kerr.safe_sqrt(_u_eval(st.cU, u_grid))
         cM = st.cM
         Mv = ((_bc(cM[4], nd) * mu_grid ** 2 + _bc(cM[2], nd))
               * mu_grid ** 2 + _bc(cM[0], nd))
-        dmu_g = smu_g * Mv.clamp_min(0.0).sqrt()
+        dmu_g = smu_g * kerr.safe_sqrt(Mv)
         mun = _hermite_nodes_ep(mu_grid[..., :-1], mu_grid[..., 1:],
                                 dmu_g[..., :-1], dmu_g[..., 1:], dseg,
                                 x).clamp(-1.0, 1.0)
@@ -345,9 +353,11 @@ def _cumulative_phases(st, a, l, lam_grid, u_grid=None, mu_grid=None,
     seg_p = (dph_m * w).sum(-1) * dseg
     seg_a = (daff_m * w).sum(-1) * dseg
 
-    # radial parts, lam-space rule (windowed on long grids)
+    # radial parts, lam-space rule (windowed on long float64 grids; a
+    # float32 grid takes it on every segment where r barely moves, below)
     nseg = dseg.shape[-1]
-    windowed = node_interp and nseg >= 4 * _PHASE_WIN
+    f32 = u_grid.dtype == torch.float32
+    windowed = node_interp and nseg >= 4 * _PHASE_WIN and not f32
     if windowed:
         mid = nseg // 2
         widx = np.unique(np.clip(np.concatenate([
@@ -395,9 +405,17 @@ def _cumulative_phases(st, a, l, lam_grid, u_grid=None, mu_grid=None,
     r_p = (dph_rr * fac * rn * w).sum(-1) * dlnr
     r_a = dr + ((daff_rr * fac - 1.0) * rn * w).sum(-1) * dlnr
 
-    # keep the lam-space rule on segments that abut the turning point
+    # keep the lam-space rule on segments that abut the turning point, and
+    # in float32 on every segment across which u moves by less than
+    # _FLAT_F32 of itself: near a turn the ln r rule's 1/sqrt(U) then
+    # multiplies a dlnr that is rounding (a ray that skims its turning
+    # radius for a few segments lost 3e-2 rad of phi in grtrans_tpu's
+    # float32 as in the port's, measured), while in lam space the
+    # integrand is smooth
     lt = _bc(st.lam_rturn, a_.dim())
     near_turn = (b_ > lt - dseg) & (a_ < lt + dseg)
+    if f32:
+        near_turn = near_turn | (u_hi - u_lo < _FLAT_F32 * u_hi)
     rad = []
     for r_x, lam_x in ((r_t, lam_t), (r_p, lam_p), (r_a, lam_a)):
         if windowed:
@@ -413,14 +431,76 @@ def _cumulative_phases(st, a, l, lam_grid, u_grid=None, mu_grid=None,
     return cum3[0], cum3[1], cum3[2]
 
 
-def trace(a, mu0, alpha, beta, l, q2, sm, u0, npts, uout=None, phi0=0.0):
+def _polar_angle(mu):
+    """arccos(mu), with the poles |mu| = 1 (where the clipped trace lands
+    on a ray that grazes one, as the float32 trace does more often) taken
+    as the constants 0 and pi: the same value, and a zero gradient in
+    place of arccos's infinite one."""
+    pole = mu.abs() >= 1.0
+    return torch.where(pole, torch.where(mu > 0, 0.0, math.pi),
+                       torch.arccos(torch.where(pole, 0.0, mu)))
+
+
+def _hermite_refine(y_c, d_c, h_c, jmap, tmap, with_deriv=False):
+    """Fill a fine grid from coarse samples by cubic Hermite: y_c, d_c
+    (npix, n_c) coarse values and derivatives, h_c (npix, n_c - 1)
+    segment widths, jmap / tmap (npts,) the segment index and normalized
+    position of each fine point.  Exact at the coarse nodes.
+
+    with_deriv=True also returns dy/dlam of the interpolant: for the
+    potentials it is the signed sqrt(U) / sqrt(M) (du/dlam = su sqrt(U)),
+    accurate to O(h^3) with no polynomial evaluation and no cancellation
+    at a turning point."""
+    y0, y1 = y_c[:, jmap], y_c[:, jmap + 1]
+    d0, d1 = d_c[:, jmap], d_c[:, jmap + 1]
+    h = h_c[:, jmap]
+    t = tmap[None, :]
+    t2 = t * t
+    t3 = t2 * t
+    y = ((2 * t3 - 3 * t2 + 1) * y0 + (t3 - 2 * t2 + t) * h * d0
+         + (-2 * t3 + 3 * t2) * y1 + (t3 - t2) * h * d1)
+    if not with_deriv:
+        return y
+    dy = ((6 * t2 - 6 * t) * (y0 - y1) / h + (3 * t2 - 4 * t + 1) * d0
+          + (3 * t2 - 2 * t) * d1)
+    return y, dy
+
+
+def _coarse_nodes(npts, coarse):
+    """Every coarse-th point of npts and the last one: (idxs, jmap, tmap)
+    of _hermite_refine as numpy arrays."""
+    idxs = list(range(0, npts, coarse))
+    if idxs[-1] != npts - 1:
+        idxs.append(npts - 1)
+    idxs = np.asarray(idxs)
+    fine = np.arange(npts)
+    jmap = np.minimum(np.searchsorted(idxs, fine, side="right") - 1,
+                      len(idxs) - 2)
+    tmap = (fine - idxs[jmap]) / (idxs[jmap + 1] - idxs[jmap])
+    return idxs, jmap, tmap
+
+
+def trace(a, mu0, alpha, beta, l, q2, sm, u0, npts, uout=None, phi0=0.0,
+          prec="f64", coarse=1):
     """Trace rays from the camera: npts samples even in Mino time, from
     u = uout (default: the observer's u0) to the horizon, or back out to
     uout after a radial turning point (reference standard=1 sampling).
 
     alpha, beta, l, q2, sm are (npix,) float64 tensors; a and mu0 numbers
     (floats, or 0-d tensors that carry a gradient), u0, uout and phi0
-    floats.  Returns a GeodesicBundle on their device."""
+    floats.  Returns a GeodesicBundle on their device.
+
+    prec="mixed" (grtrans_tpu's mixed path): the per-(pixel, point)
+    algebra -- Hermite nodes, phase integrands, the wavevector -- runs in
+    float32, and x and k come back float32; the per-pixel set-up (roots,
+    turning-point landmarks, the lam grid), the Weierstrass inversions and
+    the running phase and affine sums stay float64, and lam (the affine
+    parameter) comes back float64, so that the Stokes march forms its
+    Faraday phase in float64.  coarse > 1: the two inversions run only at
+    every coarse-th Mino node (and the last), and u, mu fill in between by
+    cubic Hermite with their analytic derivatives, in float32 under
+    "mixed", whose interpolant's derivative is then the signed sqrt of
+    the potential in the wavevector."""
     st, uf = _setup(a, mu0, l, q2, sm, u0)
 
     lam_start = torch.zeros_like(l)
@@ -436,20 +516,77 @@ def trace(a, mu0, alpha, beta, l, q2, sm, u0, npts, uout=None, phi0=0.0):
             / max(npts - 1, 1))
     lam = lam_start[:, None] + (lam_end - lam_start)[:, None] * frac[None, :]
 
-    u = _eval_u(st, lam)
-    mu = _eval_mu(st, lam).clamp(-1.0, 1.0)
-    su, smu, tpr, tpm = _signs_and_counts(st, lam)
-    dt_c, dph_c, aff_c = _cumulative_phases(st, a, l, lam, u, mu,
+    mixed = prec == "mixed"
+    sqrtU = sqrtM = None
+    if coarse > 1 and npts >= 4 * coarse:
+        idxs, jmap, tmap = _coarse_nodes(npts, coarse)
+        dev = lam.device
+        idxs, jmap = (torch.as_tensor(v, device=dev) for v in (idxs, jmap))
+        lam_c = lam[:, idxs]
+        u_c = _eval_u(st, lam_c)
+        mu_c = _eval_mu(st, lam_c).clamp(-1.0, 1.0)
+        su_c, smu_c, _, _ = _signs_and_counts(st, lam_c)
+        du_c = su_c * kerr.safe_sqrt(_u_eval(st.cU, u_c))
+        nd = u_c.dim()
+        Mv = ((_bc(st.cM[4], nd) * mu_c ** 2 + _bc(st.cM[2], nd))
+              * mu_c ** 2 + _bc(st.cM[0], nd))
+        dmu_c = smu_c * kerr.safe_sqrt(Mv)
+        h_c = lam_c[:, 1:] - lam_c[:, :-1]
+        # the fill runs in float32 under "mixed"
+        wd = torch.float32 if mixed else lam.dtype
+        tm = torch.as_tensor(tmap, dtype=wd, device=dev)
+        u_c, du_c, mu_c, dmu_c, h_c = (v.to(wd) for v in (u_c, du_c, mu_c,
+                                                          dmu_c, h_c))
+        if mixed:
+            u64, du_f = _hermite_refine(u_c, du_c, h_c, jmap, tm, True)
+            mu64, dmu_f = _hermite_refine(mu_c, dmu_c, h_c, jmap, tm, True)
+            sqrtU, sqrtM = du_f.abs(), dmu_f.abs()
+        else:
+            u64 = _hermite_refine(u_c, du_c, h_c, jmap, tm)
+            mu64 = _hermite_refine(mu_c, dmu_c, h_c, jmap, tm)
+        u64 = u64.clamp_min(1e-12)
+        mu64 = mu64.clamp(-1.0, 1.0)
+    else:
+        u64 = _eval_u(st, lam)
+        mu64 = _eval_mu(st, lam).clamp(-1.0, 1.0)
+    if mixed:
+        f32 = torch.float32
+        stq = _RaySetup(*(
+            tuple(c.to(f32) for c in v) if isinstance(v, tuple)
+            else v.to(f32) if v.is_floating_point() else v for v in st))
+        lamq, lq, u, mu = (v.to(f32) for v in (lam, l, u64, mu64))
+    else:
+        stq, lamq, lq, u, mu = st, lam, l, u64, mu64
+    su, smu, tpr, tpm = _signs_and_counts(stq, lamq)
+    dt_c, dph_c, aff_c = _cumulative_phases(stq, a, lq, lamq, u, mu,
                                             node_interp=True)
 
     r = 1.0 / u.clamp_min(1e-12)
-    th = torch.arccos(mu)
-    t = -dt_c
-    phi = math.pi * phi0 - dph_c
+    th = _polar_angle(mu)
+    t = -dt_c.to(u.dtype)
+    phi = math.pi * phi0 - dph_c.to(u.dtype)
     if abs(mu0) == 1.0:
         # pole-on viewing: rotate by the pixel azimuth (geodesics.f90:339)
-        phi = phi + math.copysign(1.0, mu0) * torch.atan2(beta, alpha)[:, None]
-    k = kerr.calc_nullp(q2[:, None], l[:, None], a, r, mu, su, smu)
+        phi = phi + (math.copysign(1.0, mu0)
+                     * torch.atan2(beta, alpha)[:, None]).to(u.dtype)
+    if mixed:
+        if sqrtU is None:
+            # the potentials cancel near turning points in float32: they
+            # are evaluated in float64 and only their roots in float32
+            # (safe_sqrt: a zero gradient where a potential is 0)
+            nd = u64.dim()
+            sqrtU = kerr.safe_sqrt(_u_eval(st.cU, u64).to(f32))
+            Mf64 = ((_bc(st.cM[4], nd) * mu64 ** 2 + _bc(st.cM[2], nd))
+                    * mu64 ** 2 + _bc(st.cM[0], nd))
+            sqrtM = kerr.safe_sqrt(Mf64.to(f32))
+        # Delta factored, (r - r+)(r - r-): exact near the horizon in f32
+        hh = torch.as_tensor(sc.sqrt(sc.clamp_min(1.0 - a * a, 0.0)),
+                             dtype=f32, device=r.device)
+        delta = (r - (1.0 + hh)) * (r - (1.0 - hh))
+        k = kerr.calc_nullp(q2.to(f32)[:, None], lq[:, None], a, r, mu, su,
+                            smu, sqrtU=sqrtU, sqrtM=sqrtM, delta=delta)
+    else:
+        k = kerr.calc_nullp(q2[:, None], l[:, None], a, r, mu, su, smu)
 
     x = torch.stack([t, r, th, phi], dim=-1)
     valid = (u > 0.0) & (u < uf * (1 + 10 * HOR_EPS)) & torch.isfinite(u)
@@ -507,7 +644,7 @@ def trace_polar(a, mu0, alpha, beta, l, q2, sm, u0, npts=1, phi0=0.0,
                           for c in _cumulative_phases(st, a, l, grid))
 
     r = 1.0 / u.clamp_min(1e-12)
-    th = torch.arccos(mu)
+    th = _polar_angle(mu)
     t = -dt_c
     phi = math.pi * phi0 - dph_c
     if abs(mu0) == 1.0:

@@ -224,27 +224,37 @@ def calcg(u, mu, q2, l, a, tpm, tpr, su, sm, vrl, vtl, vpl):
                         - emu2 * enu * vtl / rho * st * tt)
 
 
-def calc_nullp(q2, l, a, r, mu, su, smu):
+def calc_nullp(q2, l, a, r, mu, su, smu, sqrtU=None, sqrtM=None,
+               delta=None):
     """Photon wavevector k^mu (contravariant BL, forward in time) from the
     constants of motion (kerr.f90:255-290).  su/smu are the traced signs
     of du/dlam and dmu/dlam at the point.
+
+    sqrtU, sqrtM, delta: the roots of the radial and polar potentials and
+    Delta, where the caller has them from a more accurate evaluation: the
+    three expressions that cancel near turning points and the horizon
+    (the float32 trace of prec="mixed" passes them in).
 
     1 - mu^2 is floored at 3 eps of mu's dtype: a pole-grazing sample
     clipped to mu = +-1 would otherwise give 0/0 in k^theta; exact
     pole-crossers have l = 0, so k^phi's l/(1-mu^2) term vanishes too."""
     u = 1.0 / r
     rho2 = r * r + a * a * mu * mu
-    d = r * r - 2.0 * r + a * a
+    d = r * r - 2.0 * r + a * a if delta is None else delta
     mu2 = mu * mu
     u2 = u * u
-    # x**4 as (x*x)*(x*x), the product XLA forms for integer_pow(x, 4)
-    Mf = q2 + (a * a - q2 - l * l) * mu * mu - a * a * (mu2 * mu2)
+    if sqrtM is None:
+        # x**4 as (x*x)*(x*x), the product XLA forms for integer_pow(x, 4)
+        Mf = q2 + (a * a - q2 - l * l) * mu * mu - a * a * (mu2 * mu2)
+        sqrtM = safe_sqrt(Mf)
     eps3 = 3.0 * torch.finfo(mu.dtype).eps
     one_m = (1.0 - mu * mu).clamp_min(eps3)
-    kmu = smu * safe_sqrt(Mf) / one_m.sqrt() / rho2
-    Uf = (1.0 + (a * a - q2 - l * l) * u * u
-          + 2.0 * ((a - l) ** 2 + q2) * u ** 3 - a * a * q2 * (u2 * u2))
-    kr = su * r * r * safe_sqrt(Uf) / rho2
+    kmu = smu * sqrtM / one_m.sqrt() / rho2
+    if sqrtU is None:
+        Uf = (1.0 + (a * a - q2 - l * l) * u * u
+              + 2.0 * ((a - l) ** 2 + q2) * u ** 3 - a * a * q2 * (u2 * u2))
+        sqrtU = safe_sqrt(Uf)
+    kr = su * r * r * sqrtU / rho2
     kt = (-a * (a * (1.0 - mu * mu) - l)
           + (r * r + a * a) / d * (r * r + a * a - a * l)) / rho2
     kph = (-a + l / one_m + a / d * (r * r + a * a - a * l)) / rho2

@@ -32,6 +32,16 @@ BLK = 8     # cells composed per march step
 # touch fully transparent or masked cells
 _TINY = float(torch.finfo(torch.float32).tiny)
 _SQRT_TINY = _TINY ** 0.5
+# A cell's Faraday phase |lam2 dlam| is resolved while one unit roundoff
+# of it (2^-53 of it in float64, 2^-24 in float32) stays below 1e-3 rad:
+# up to 9.0e12 rad in float64.  Beyond, _calc_O gives the cell its
+# phase-averaged rotation (phase_max).
+PHASE_TOL = 1e-3
+
+
+def phase_max(dtype):
+    """The largest Faraday phase [rad] that `dtype` holds to PHASE_TOL."""
+    return PHASE_TOL * 2.0 / torch.finfo(dtype).eps
 
 
 def _m4(rows):
@@ -84,7 +94,7 @@ def _lam12(aq, au, av, rq, ru, rv, eps):
     return a2, p2, ap, lam1, lam2
 
 
-def _calc_O(a, rho, dx):
+def _calc_O(a, rho, dx, dx64=None):
     """exp(-K dx) of the constant opacity matrix, (4, 4, *batch)
     (radtrans_integrate.f90:615-683).  a: 4-tuple, rho: 3-tuple of batch
     tensors.
@@ -92,7 +102,19 @@ def _calc_O(a, rho, dx):
     Cells whose eigen-decomposition is unusable -- lam*dx tiny (degen),
     or |O| > 1 / NaN from lost cancellation (bad) -- take the cubic
     I - Z + Z^2/2 - Z^3/6 of the (near-)nilpotent polarized part, or
-    scalar attenuation if that still breaks passivity."""
+    scalar attenuation if that still breaks passivity.
+
+    The Faraday phase lam2 dx: a cell whose phase its dtype cannot hold
+    to PHASE_TOL (|phase| > phase_max, 9.0e12 rad in float64) rotates the
+    linear polarization by an angle that is rounding; its rotation block
+    takes the average over the phase (cos = sin = 0: the cell depolarizes
+    what it rotates), and its gradient through the phase is 0.  Every
+    other cell's O is the formula's.
+
+    dx64: a float64 copy of dx when the coefficients are float32
+    (prec="mixed", grtrans_tpu's dx64): the phase is formed in float64
+    and reduced mod 2 pi before the float32 cos and sin, since it reaches
+    1e3-1e6 rad on rotation-thick cells, beyond float32's resolution."""
     aI = a[0]
     fin = torch.finfo(aI.dtype)
     _, _, _, l1_0, l2_0 = _lam12(*a[1:], *rho, fin.eps)
@@ -155,9 +177,19 @@ def _calc_O(a, rho, dx):
     # of exps when lam1 dx is small (a Faraday-thick cell)
     ecm = -0.5 * ep * torch.expm1(arg_m - arg_p)
     eno = torch.exp((-aI * dx).clamp(lo, 60.0))
-    ph = lam2 * dx
-    cs = torch.cos(ph) * eno
-    sn = torch.sin(ph) * eno
+    if dx64 is not None and lam2.dtype != torch.float64:
+        ph = lam2.double() * dx64
+    else:
+        ph = lam2 * dx
+    # the trig sees 0 where the phase is rounding, so that no derivative
+    # of the noise reaches the backward pass
+    scrambled = ph.abs() > phase_max(ph.dtype)
+    ph = torch.where(scrambled, 0.0, ph)
+    if ph.dtype != lam2.dtype:
+        two_pi = 2.0 * math.pi
+        ph = (ph - two_pi * torch.floor(ph / two_pi)).to(lam2.dtype)
+    cs = torch.where(scrambled, 0.0, torch.cos(ph) * eno)
+    sn = torch.where(scrambled, 0.0, torch.sin(ph) * eno)
     eye = _eye4(M2)
     O = (0.5 * (ecp + cs) * eye
          - (sn * ith) * M2
@@ -403,10 +435,11 @@ def _needs_grad(*tensors):
         t is not None and t.requires_grad for t in tensors)
 
 
-def _formal_maps(a, rho, jc, dlam, substeps):
+def _formal_maps(a, rho, jc, dlam, substeps, dlam64=None):
     """Cell-map builder of the formal solver for _march.  a (4-tuple),
     rho (3-tuple) of (npix, npts) sample coefficients, jc (4,1,npix,npts),
-    dlam (npix, ncell).
+    dlam (npix, ncell) in the coefficients' dtype, dlam64 its float64
+    copy when that is float32 (_calc_O's dx64).
 
     substeps == 1: midpoint opacity, linear-in-j emission.  substeps > 1:
     each cell is cut into substeps with linearly interpolated
@@ -424,6 +457,7 @@ def _formal_maps(a, rho, jc, dlam, substeps):
     r_n, r_f = [near(c) for c in rho], [far(c) for c in rho]
     j_n, j_f = near(jc), far(jc)
     dl = _far_first(dlam, pad)
+    dl64 = None if dlam64 is None else _far_first(dlam64, pad)
 
     def maps(blk):
         an = [c[..., blk] for c in a_n]
@@ -431,19 +465,21 @@ def _formal_maps(a, rho, jc, dlam, substeps):
         rn = [c[..., blk] for c in r_n]
         rf = [c[..., blk] for c in r_f]
         jn, jf, d = j_n[..., blk], j_f[..., blk], dl[..., blk]
+        d64 = None if dl64 is None else dl64[..., blk]
         if substeps == 1:
             ac = tuple(0.5 * (n + f) for n, f in zip(an, af))
             rc = tuple(0.5 * (n + f) for n, f in zip(rn, rf))
-            O = _calc_O(ac, rc, d)
+            O = _calc_O(ac, rc, d, d64)
             return O, _cell_emission(O, ac, rc, jn, jf, d)
         dsub = d / substeps
+        dsub64 = None if d64 is None else d64 / substeps
         cell = None
         for s in reversed(range(substeps)):
             fr = (s + 0.5) / substeps
             ac = tuple(n * (1 - fr) + f * fr for n, f in zip(an, af))
             rc = tuple(n * (1 - fr) + f * fr for n, f in zip(rn, rf))
             e0, e1 = s / substeps, (s + 1) / substeps
-            O = _calc_O(ac, rc, dsub)
+            O = _calc_O(ac, rc, dsub, dsub64)
             step = (O, _cell_emission(O, ac, rc, jn * (1 - e0) + jf * e0,
                                       jn * (1 - e1) + jf * e1, dsub))
             cell = step if cell is None else _compose(step, cell)
@@ -464,14 +500,23 @@ def formal_solve(lam, j, K, mask=None, max_tau=MAX_TAU, I0=None, substeps=1,
     substeps > 1 subdivides each cell with linearly interpolated
     coefficients; integration stops at the cell holding tau = max_tau.
     Returns the (npix, npts, 4) Stokes profile (index 0 = observer), or
-    only the observer's (npix, 4) with profile=False."""
+    only the observer's (npix, 4) with profile=False.
+
+    float32 coefficients with a float64 lam (prec="mixed") march in
+    float32: the cells' affine parameter steps are those of lam rounded
+    to float32, and each cell's Faraday phase is formed from the float64
+    step (_calc_O's dx64), as grtrans_tpu's formal_solve does."""
     j, K = passivity_clamp(j, K)
+    mixed = j.dtype == torch.float32 and lam.dtype == torch.float64
+    dlam64 = lam[..., 1:] - lam[..., :-1] if mixed else None
+    if mixed:
+        lam = lam.to(j.dtype)
     a = tuple(K[..., 0:4].movedim(-1, 0))
     rho = tuple(K[..., 4:7].movedim(-1, 0))
     jc = j.movedim(-1, 0)[:, None]                       # (4,1,npix,npts)
     dlam = lam[..., 1:] - lam[..., :-1]                  # (npix, ncell)
     _, cell_ok = _cell_tau_mask(lam, K, mask, max_tau)
-    return _march(_formal_maps(a, rho, jc, dlam, substeps), cell_ok,
+    return _march(_formal_maps(a, rho, jc, dlam, substeps, dlam64), cell_ok,
                   _initial_stokes(I0, lam.shape[0], j), profile,
                   _needs_grad(lam, j, K, I0 if torch.is_tensor(I0) else None))
 
@@ -652,7 +697,10 @@ def sphstokes_solve(lam, j, K, mask=None, max_tau=MAX_TAU, nsub=4):
     coefficients, sequentially over the cells and batched over pixels.
     Returns the (npix, npts, 4) linear Stokes profile (index 0 =
     observer)."""
-    j, K = passivity_clamp(j, K)
+    # float32 coefficients with a float64 lam march in float64 here, as
+    # grtrans_tpu's promotion runs them
+    dt = torch.promote_types(lam.dtype, j.dtype)
+    j, K = passivity_clamp(j.to(dt), K.to(dt))
     _, cell_ok = _cell_tau_mask(lam, K, mask, max_tau)
     dlam = lam[..., 1:] - lam[..., :-1]
     npts = lam.shape[-1]

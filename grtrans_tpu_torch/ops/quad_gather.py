@@ -48,9 +48,10 @@ The library is compiled with nvcc on first use into
 grtrans_tpu_torch/_build/, keyed by a hash of its source, and bound with
 ctypes.  `quad_gather.launches`, `quad_gather_rows.launches`,
 `quad_gather_bwd_w.launches` and `quad_gather_rows_bwd_w.launches` count
-kernel launches; `launches_by_kernel` of the forward wrappers splits them
-by kernel.  The plain twins count their calls (`calls`), so that a run can
-show that no path on the card reached them.
+kernel launches; `launches_by_dtype` of each wrapper splits them into the
+"f32" and "f64" instantiations, and `launches_by_kernel` of the forward
+wrappers by kernel.  The plain twins count their calls (`calls`), so that
+a run can show that no path on the card reached them.
 """
 
 import collections
@@ -73,6 +74,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _err_flags = {}
+
+
+def dtype_name(table):
+    """"f32" or "f64": the kernel instantiation a table's dtype takes."""
+    return "f64" if table.dtype == torch.float64 else "f32"
 
 
 def pair_rows(rows):
@@ -107,9 +113,12 @@ def bilinear_operands(n2, i1, i2, w1, w2):
 
 def bilinear_packed(table, n2, nf, i1, i2, w1, w2):
     """Bilinear sample of a pack_corners_2d table at cells (i1, i2) with
-    fractional weights (w1, w2) along the two axes, through quad_gather.
+    fractional weights (w1, w2) along the two axes, through quad_gather;
+    the weights take the table's dtype (a float64 table sampled at float32
+    points is read in float64, as grtrans_tpu's promotion reads it).
     Returns i1.shape + (nf,)."""
-    out = quad_gather(table, *bilinear_operands(n2, i1, i2, w1, w2), 4, nf)
+    idx, w = bilinear_operands(n2, i1, i2, w1, w2)
+    out = quad_gather(table, idx, w.to(table.dtype), 4, nf)
     return out.reshape(i1.shape + (nf,))
 
 
@@ -206,6 +215,7 @@ def quad_gather(table, idx, w, nc, nf, generic=False):
 
 quad_gather.launches = 0
 quad_gather.launches_by_kernel = collections.Counter()
+quad_gather.launches_by_dtype = collections.Counter()
 
 
 def quad_gather_bwd_w(table, idx, g, nc, nf):
@@ -220,10 +230,12 @@ def quad_gather_bwd_w(table, idx, g, nc, nf):
     _launch_bwd("quad_gather_bwd_w", table, idx, g, dw, (n, table.shape[0],
                                                          nc, nf))
     quad_gather_bwd_w.launches += 1
+    quad_gather_bwd_w.launches_by_dtype[dtype_name(table)] += 1
     return dw
 
 
 quad_gather_bwd_w.launches = 0
+quad_gather_bwd_w.launches_by_dtype = collections.Counter()
 
 TILED_SHAPES = ((4, 9), (2, 6), (4, 6), (4, 10), (4, 11), (2, 2), (4, 1))
 WIDE_MIN_NF = 32
@@ -303,10 +315,12 @@ def quad_gather_rows_bwd_w(table, idx, g, nc, nf):
     _launch_bwd("quad_gather_rows_bwd_w", table, idx, g, dw,
                 (n, table.shape[0], r, nc, nf))
     quad_gather_rows_bwd_w.launches += 1
+    quad_gather_rows_bwd_w.launches_by_dtype[dtype_name(table)] += 1
     return dw
 
 
 quad_gather_rows_bwd_w.launches = 0
+quad_gather_rows_bwd_w.launches_by_dtype = collections.Counter()
 
 
 def _launch_bwd(name, table, idx, g, dw, sizes):
@@ -343,11 +357,13 @@ def _gather_rows(table, idx, w, nc, nf, simple, dedup):
         raise RuntimeError(f"quad_gather_rows launch failed: CUDA error {rc}")
     quad_gather_rows.launches += 1
     quad_gather_rows.launches_by_kernel[kernel] += 1
+    quad_gather_rows.launches_by_dtype[dtype_name(table)] += 1
     return out
 
 
 quad_gather_rows.launches = 0
 quad_gather_rows.launches_by_kernel = collections.Counter()
+quad_gather_rows.launches_by_dtype = collections.Counter()
 
 # (R, nc): the snapshot's trilinear cell, slow light, HARMPI.  The binned
 # populations (R = 8 or 4 of nc = 1) take the simple kernel: their ~1e5
@@ -402,6 +418,7 @@ def _launch(table, idx, w, nc, nf, generic):
         raise RuntimeError(f"quad_gather launch failed: CUDA error {rc}")
     quad_gather.launches += 1
     quad_gather.launches_by_kernel[kernel] += 1
+    quad_gather.launches_by_dtype[dtype_name(table)] += 1
     return out
 
 

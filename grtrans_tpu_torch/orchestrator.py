@@ -38,14 +38,29 @@ def camera_uout(cfg, cam):
 
 def trace_camera(cfg, cam, mu0, blk=slice(None)):
     """The geodesics of the pixels `blk` of `cam`: for standard=2 to each
-    ray's first crossing of the equatorial plane, else cfg.nn[2] points
-    from camera_uout."""
+    ray's first crossing of the equatorial plane (float64 in every
+    precision), else cfg.nn[2] points from camera_uout.  prec="mixed"
+    traces in float32 (geokerr.trace) and, from 256 points a ray, with the
+    inversions at every 4th point and a Hermite fill between: the fill's
+    error goes as (4 / npts)^4, and a 64-point render at coarse=4 misses
+    the 2e-3 image bar (grtrans_tpu/orchestrator.py:179-190)."""
     ray = (cfg.spin, float(mu0), cam.alpha[blk], cam.beta[blk], cam.l[blk],
            cam.q2[blk], cam.sm[blk], cam.u0)
     if cfg.standard == 2:
         return geokerr.trace_polar(*ray, npts=1, phi0=cfg.phi0)
-    return geokerr.trace(*ray, cfg.nn[2], phi0=cfg.phi0,
-                         uout=camera_uout(cfg, cam))
+    mixed = cfg.prec == "mixed"
+    nup = cfg.nn[2]
+    return geokerr.trace(*ray, nup, phi0=cfg.phi0,
+                         uout=camera_uout(cfg, cam),
+                         prec="mixed" if mixed else "f64",
+                         coarse=4 if mixed and nup >= 256 else 1)
+
+
+def _traced_dtype(cfg):
+    """The dtype of a traced bundle's x and k under cfg."""
+    single = cfg.standard == 2
+    return torch.float32 if cfg.prec == "mixed" and not single \
+        else torch.float64
 
 
 def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
@@ -106,8 +121,8 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
     if unported:
         raise NotImplementedError(
             f"grtrans_run options not ported: {sorted(unported)}")
-    if cfg.prec != "f64":
-        raise NotImplementedError(f"prec={cfg.prec!r} is not ported")
+    if cfg.prec not in ("f64", "mixed"):
+        raise ValueError(f"prec={cfg.prec!r}: \"f64\" or \"mixed\"")
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be a positive pixel count, got {chunk}")
     if mesh is not None:
@@ -178,7 +193,9 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
             path = gdfile if len(mus) == 1 else f"{gdfile}.mu{float(mu0):.6f}"
             if mesh is None:
                 bundle = geo_cache.load_bundle(path, key, device=home)
-                if bundle is None or bundle.x.shape[0] != npix:
+                # a bundle of the other precision is traced again
+                if bundle is None or bundle.x.shape[0] != npix \
+                        or bundle.x.dtype != _traced_dtype(cfg):
                     parts = [trace_camera(cfg, cam, mu0,
                                           slice(lo, lo + step))
                              for lo in range(0, npix, step)]
@@ -199,15 +216,20 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
             else:
                 geo = GeodesicBundle(*(v[blk].to(device) for v in bundle))
             if t0sh is not None:
-                t = geo.x[..., 0] - t0sh[blk, None]
+                t = geo.x[..., 0] - t0sh[blk, None].to(geo.x.dtype)
                 geo = geo._replace(x=torch.cat([t[..., None],
                                                 geo.x[..., 1:]], dim=-1))
+            # prec="mixed" samples the fluid in float32, as grtrans_tpu
+            # (its tables in float32 where the model keeps a float32 copy)
+            xs, ks = geo.x, geo.k
+            if cfg.prec == "mixed":
+                xs, ks = xs.float(), ks.float()
             if not (timedep or slow_light):
-                fv = model.vals(geo.x, geo.k, a)
+                fv = model.vals(xs, ks, a)
             renders = iter(scan)
             for it in range(cfg.nt):
                 if timedep or slow_light:
-                    fv = model.vals(geo.x, geo.k, a, time=it * cfg.dt)
+                    fv = model.vals(xs, ks, a, time=it * cfg.dt)
                 for mdot in cfg.mdots():
                     sp = _source_params(cfg, float(mdot))
                     ei = model.convert(fv, sp)
@@ -215,7 +237,7 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
                         geo, fv, ei, cfg.ename, freq_list, float(mu0), alpha,
                         beta, a, cfg.mbh, sp, iname=cfg.iname,
                         nvals=cfg.nvals, standard=cfg.standard,
-                        extra=cfg.extra))
+                        extra=cfg.extra, prec=cfg.prec))
         ivals.extend(torch.cat(parts, dim=1) for parts in scan)
     if mesh is not None:
         whole = sharding.gather_pixels(mesh, torch.cat(ivals, dim=0), dim=1)
@@ -238,7 +260,8 @@ def _mesh_bundle(cfg, cam, mu0, mesh, mine, path, key, device):
     group = mesh.get_group(0)
     found = geo_cache.load_bundle(path, key, device="cpu")
     npix = cam.alpha.shape[0] * mesh.size()
-    hit = torch.tensor([int(found is not None and found.x.shape[0] == npix)],
+    hit = torch.tensor([int(found is not None and found.x.shape[0] == npix
+                            and found.x.dtype == _traced_dtype(cfg))],
                        device=device)
     if sharding.all_reduce(mesh, hit, dist.ReduceOp.MIN).item():
         return GeodesicBundle(*(v[mine].to(device) for v in found))

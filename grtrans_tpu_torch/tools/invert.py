@@ -59,7 +59,14 @@ class InverseProblem:
     start (default: the camera, as grtrans_tpu); `model`, a loaded model
     that a geometry-only fit renders through (a snapshot loaded once);
     `device`, where the render runs (the card unless the caller names the
-    CPU)."""
+    CPU).  prec="mixed" renders as grtrans_tpu's does: the trace in
+    float32 (geokerr.trace), the fluid, coefficients and march in float32
+    (driver.render_rays); the gathers' weights then take their gradient
+    from the float32 backward kernels.  The trace runs its inversions at
+    every 4th point only from 256 points a ray, as grtrans_run does;
+    grtrans_tpu's InverseProblem does so at any length, and at 64 points
+    that fill moves the 16x16x64 flagship image by 1.1e-3 of its maximum
+    and d/dspin by 40% (measured)."""
     fname: str = "SARIAF"
     ename: str = "POLSYNCHTH"
     iname: str = "formal"
@@ -76,9 +83,8 @@ class InverseProblem:
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.prec != "f64":
-            raise NotImplementedError(f"prec={self.prec!r}: the port renders "
-                                      "in float64 only")
+        if self.prec not in ("f64", "mixed"):
+            raise ValueError(f"prec={self.prec!r}: \"f64\" or \"mixed\"")
         nro, nphi, self.npts = self.nn
         a1, a2, b1, b2 = self.gridvals
         self.device = torch.device(self.device)
@@ -128,16 +134,20 @@ class InverseProblem:
             lo, hi = pix
             alpha, beta, sm = alpha[lo:hi], beta[lo:hi], sm[lo:hi]
         l, q2 = cam_mod.constants_of_motion(a, mu0, alpha, beta)
+        mixed = self.prec == "mixed"
         geo = _checkpoint(lambda aa, m0, ll, qq: geokerr.trace(
             aa, m0, alpha, beta, ll, qq, sm, self.u0, self.npts,
-            uout=self.uout), a, mu0, l, q2)
+            uout=self.uout, prec=self.prec,
+            coarse=4 if mixed and self.npts >= 256 else 1),
+            a, mu0, l, q2)
         fv = _checkpoint(lambda x, k, aa: model.vals(x, k, aa), geo.x, geo.k,
                          a)
         sp = SourceParams(mbh=self.mbh, **self.source)
         ei = model.convert(fv, sp)
         iv = _checkpoint(lambda g, f, e, m0, aa: driver.render_rays(
             g, f, e, self.ename, [self.freq], m0, alpha, beta, aa, self.mbh,
-            sp, iname=self.iname, nvals=self.nvals), geo, fv, ei, mu0, a)
+            sp, iname=self.iname, nvals=self.nvals, prec=self.prec), geo, fv,
+            ei, mu0, a)
         return iv[0]
 
 

@@ -2,9 +2,10 @@
 
     python3 scripts/torch_profile.py
         [--config ffjet|sariaf|hotspot|thindisk|harm3d] [--nn 100 100 400]
-        [--snapshot 288 128 128] [--out FILE]
+        [--snapshot 288 128 128] [--prec f64|mixed] [--out FILE]
 
-Renders one configuration in float64 on one CUDA card: `ffjet`, the
+Renders one configuration in float64 (or, with --prec mixed, in the mixed
+precision of GrtransConfig.prec) on one CUDA card: `ffjet`, the
 FFJET/POLSYNCHPL flagship with the formal integrator (synthetic dump at
 the real table size); `sariaf`, the Sgr A* RIAF (SARIAF + HYBRIDTHPL,
 lsoda integrator, three frequencies); `hotspot`, one frame of the
@@ -27,6 +28,7 @@ without one.
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -43,10 +45,10 @@ from grtrans_tpu_torch import convert, driver  # noqa: E402
 from grtrans_tpu_torch.config import GrtransConfig  # noqa: E402
 from grtrans_tpu_torch.fluid.base import load_fluid_model  # noqa: E402
 from grtrans_tpu_torch.fluid.ffjet import load_ffjet_file  # noqa: E402
-from grtrans_tpu_torch.geodesics import camera, geokerr  # noqa: E402
+from grtrans_tpu_torch.geodesics import camera  # noqa: E402
 from grtrans_tpu_torch.integrate import solvers  # noqa: E402
 from grtrans_tpu_torch.orchestrator import (_source_params,  # noqa: E402
-                                            grtrans_run)
+                                            grtrans_run, trace_camera)
 from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump  # noqa: E402
 
 
@@ -142,6 +144,7 @@ def main():
     ap.add_argument("--nn", type=int, nargs=3, default=None)
     ap.add_argument("--snapshot", type=int, nargs=3, default=SNAPSHOT_NX,
                     help="zones of the harm3d config's synthetic snapshot")
+    ap.add_argument("--prec", choices=("f64", "mixed"), default="f64")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     SNAPSHOT_NX[:] = args.snapshot
@@ -151,6 +154,7 @@ def main():
     nro, nphi, npts = args.nn or DEFAULT_NN.get(args.config,
                                                 (100, 100, 400))
     cfg, model = SETUPS[args.config]((nro, nphi, npts), dev)
+    cfg = dataclasses.replace(cfg, prec=args.prec)
     spin, mu0 = cfg.spin, cfg.mumin
     freqs = [float(f) for f in cfg.freqs()]
     grtrans_run(cfg, model, device=dev)                   # warm-up
@@ -160,24 +164,22 @@ def main():
                              device=dev)
     sp = _source_params(cfg, float(cfg.mdotmin))
     stages = {}
-    ray = (spin, mu0, cam.alpha, cam.beta, cam.l, cam.q2, cam.sm, cam.u0)
-    if cfg.standard == 2:
-        geo, stages["trace_polar"] = profiled(lambda: geokerr.trace_polar(
-            *ray, npts=1, phi0=cfg.phi0))
-    else:
-        geo, stages["trace"] = profiled(lambda: geokerr.trace(
-            *ray, npts, phi0=cfg.phi0,
-            uout=cfg.uout if cfg.uout > cam.u0 * 1.0001 else None))
+    geo, stages["trace_polar" if cfg.standard == 2 else "trace"] = profiled(
+        lambda: trace_camera(cfg, cam, mu0))
+    # the fluid is sampled at float32 points under prec="mixed"
+    xs, ks = geo.x, geo.k
+    if cfg.prec == "mixed":
+        xs, ks = xs.float(), ks.float()
     frame_time = dict(time=0.0) if getattr(model, "timedep", False) else {}
     fv, stages["fluid_vals"] = profiled(
-        lambda: model.vals(geo.x, geo.k, spin, **frame_time))
+        lambda: model.vals(xs, ks, spin, **frame_time))
     ei = model.convert(fv, sp)
     if args.config == "harm3d":
         # vals = query geometry (root finder inside) + gather + assemble
-        q, stages["vals: _query"] = profiled(lambda: model._query(geo.x, spin))
+        q, stages["vals: _query"] = profiled(lambda: model._query(xs, spin))
         _, stages["vals: theta root finder (part of _query)"] = profiled(
             lambda: model.x123_of_blks(q["r"], q["th"], q["th"]))
-        table, names = model._stacked_fields()
+        table, names = model._stacked_fields(xs.dtype)
         ns = table.shape[0] // model.nt_slices
         cols, stages["vals: gather (quad_gather_rows)"] = profiled(
             lambda: model._gather_cols(table, ns, model.uniqx2.shape[0],
@@ -200,7 +202,7 @@ def main():
         _, stages["render_rays"] = profiled(lambda: driver.render_rays(
             geo, fv, ei, cfg.ename, freqs, mu0, cam.alpha, cam.beta, spin,
             cfg.mbh, sp, iname=cfg.iname, nvals=cfg.nvals,
-            standard=cfg.standard))
+            standard=cfg.standard, prec=cfg.prec))
     finally:
         solvers.observed_stokes = observed_stokes
     if captured:                  # a single-point render integrates nothing
@@ -210,7 +212,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    result = {"card": card, "config": args.config, "iname": cfg.iname,
+    result = {"card": card, "config": args.config, "prec": cfg.prec,
+              "iname": cfg.iname,
               "nfreq": cfg.nfreq, "nn": [nro, nphi, npts], "frame": whole,
               "stages": stages}
     text = json.dumps(result, indent=1)

@@ -325,8 +325,10 @@ def _grtrans_run(**options):
 
 
 UNPORTED = {
-    "mixed": (NotImplementedError,
-              lambda: Grtrans(**_tiny(prec="mixed")).run(device="cpu")),
+    # a precision other than f64 and mixed, refused with a message that
+    # names the two (mixed renders: test_mixed_precision_renders)
+    "mixed": (ValueError,
+              lambda: Grtrans(**_tiny(prec="bf16")).run(device="cpu")),
     # a mesh shards the pixels, chunk bounds one device's memory: refused
     # together, as grtrans_tpu refuses them, before the mesh is looked at
     "mesh": (ValueError, lambda: _grtrans_run(mesh=object(), chunk=8)),
@@ -341,6 +343,18 @@ def test_unported_options_raise_by_name(name):
     error, call = UNPORTED[name]
     with pytest.raises(error, match=name):
         call()
+
+
+def test_mixed_precision_renders():
+    """Grtrans(prec="mixed") at 4x4x32: a finite float64 image within 2e-3
+    of max|I| of the float64 render (tests/test_precision.py's bar;
+    measured 4.1e-4)."""
+    ours = Grtrans(**_tiny(prec="mixed", nn=(4, 4, 32))).run(device="cpu")
+    f64 = Grtrans(**_tiny(nn=(4, 4, 32))).run(device="cpu")
+    assert ours.ivals.dtype == np.float64 and ours.ivals.shape == (16, 4, 2)
+    assert np.isfinite(ours.ivals).all()
+    err = np.abs(ours.ivals - f64.ivals).max() / np.abs(f64.ivals[:, 0]).max()
+    assert err <= 2e-3, err
 
 
 @pytest.mark.parametrize("change,columns", [

@@ -263,7 +263,7 @@ def test_bundles_cross_between_packages(tmp_path, monkeypatch):
                                       getattr(tgeo_, f).numpy())
 
 
-def test_verbose_and_device_output(plain_geo, capsys):
+def test_verbose_and_device_output(plain_geo, capsys, tmp_path):
     cfg = dataclasses.replace(plain_geo[0], nmdot=2, mdotmin=1e14,
                               mdotmax=1e16, nfreq=2, fmax=4e11)
     whole, _, _ = grtrans_run(cfg, device="cpu", verbose=True)
@@ -284,5 +284,22 @@ def test_verbose_and_device_output(plain_geo, capsys):
     assert all(torch.equal(m, p) for m, p in zip(meshed, parts))
     with pytest.raises(TypeError, match="DeviceMesh"):
         grtrans_run(cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="mixed"):
-        grtrans_run(dataclasses.replace(cfg, prec="mixed"), device="cpu")
+    # the command line renders prec="mixed" (--prec; the namelists do not
+    # carry it) at 4x4x32: the file holds the float32 of grtrans_run's
+    # float64 image, finite, within 2e-3 of max|I| of the float64 render
+    # (tests/test_precision.py's bar; measured 1.7e-4)
+    small = GrtransConfig(**dict(CLI_KW, nn=(4, 4, 32)))
+    tnml.write_inputs(small, tmp_path / "inputs.in")
+    tnml.write_files_in(str(tmp_path / "inputs.in"),
+                        str(tmp_path / "mixed.bin"), tmp_path / "files.in")
+    from grtrans_tpu_torch.__main__ import main
+    assert main([str(tmp_path / "files.in"), "--device", "cpu",
+                 "--prec", "mixed"]) == 0
+    _, cams, _ = read_camera_bin(tmp_path / "mixed.bin")
+    mixed, _, _ = grtrans_run(dataclasses.replace(small, prec="mixed"),
+                              device="cpu")
+    f64, _, _ = grtrans_run(small, device="cpu")
+    assert mixed.dtype == torch.float64 and torch.isfinite(mixed).all()
+    np.testing.assert_array_equal(cams[0],
+                                  mixed[0].numpy().astype(np.float32))
+    assert (mixed - f64).abs().max() <= 2e-3 * f64[..., 0].abs().max()

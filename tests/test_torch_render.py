@@ -69,10 +69,12 @@ def test_image_is_a_polarized_jet(renders):
 
 
 def test_registry_load_and_unported_options(tmp_path):
-    """grtrans_run loads FFJET by name from cfg.fargs, refuses what the
-    port does not implement instead of rendering something else, and
-    raises ValueError for a fluid name neither package knows; a mesh of
-    one process and a gdfile bundle render the image of a plain run."""
+    """grtrans_run loads FFJET by name from cfg.fargs, renders
+    prec="mixed" (4x4x32: a finite float64 image within 2e-3 of max|I| of
+    the float64 one, tests/test_precision.py's bar; measured 2.9e-7) and
+    refuses a precision it does not have, and raises ValueError for a
+    fluid name neither package knows; a mesh of one process and a gdfile
+    bundle render the image of a plain run."""
     dfile = tmp_path / "ffjet.bin"
     write_ffjet_dump(dfile, nx=32)
     cfg = convert.config_from_jax(JConfig(**flagship_kwargs(dfile,
@@ -81,8 +83,14 @@ def test_registry_load_and_unported_options(tmp_path):
     model = convert.ffjet_from_arrays(*load_ffjet_file(dfile), device="cpu")
     preloaded, _, _ = trun(cfg, model, device="cpu")
     assert torch.equal(by_name, preloaded)
-    with pytest.raises(NotImplementedError, match="mixed"):
-        trun(dataclasses.replace(cfg, prec="mixed"), device="cpu")
+    small = dataclasses.replace(cfg, nn=(4, 4, 32))
+    mixed, _, _ = trun(dataclasses.replace(small, prec="mixed"), model,
+                       device="cpu")
+    f64, _, _ = trun(small, model, device="cpu")
+    assert mixed.dtype == torch.float64 and torch.isfinite(mixed).all()
+    assert (mixed - f64).abs().max() <= 2e-3 * f64[..., 0].abs().max()
+    with pytest.raises(ValueError, match="mixed"):
+        trun(dataclasses.replace(cfg, prec="f16"), device="cpu")
     for name in ("RIAF", "HARM2D", "KORALRAD"):
         with pytest.raises(ValueError, match=f"unknown fluid model '{name}'"):
             trun(dataclasses.replace(cfg, fname=name), device="cpu")
