@@ -108,27 +108,34 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      SARIAF render's total flux with respect to (n0, t0) through the
      pixel-sharded render (the block's backward pass and one all_reduce),
      equal to the gradient without a mesh (rtol 1e-10);
- 21. the backward kernels of the gathers with respect to their weights,
-     quad_gather_bwd_w (FFJET f64, 4e6 random rows of (16384, 4 x 9)) and
+ 21. the backward kernels of the gathers with respect to their weights:
+     (a) quad_gather_bwd_w (4e6 random rows of FFJET's (16384, 4 x 9) in
+     f64 and f32 and of the POLSYNCHPL cutoff table (201, 2 x 6)) and
      quad_gather_rows_bwd_w (the snapshot's (4,718,592, 2 x 10), R = 4),
-     against their plain twins (1e-14 of max|twin|), the out-of-range
-     flag, a table that requires a gradient refused, CUDA-event times
-     beside the backward of embedding_bag with respect to its
-     per_sample_weights and the byte bound;
+     the kernel the wrapper picks (tiled) and the first design forced
+     (generic / simple), each against its plain twin (KERNEL_TOL of
+     max|twin|) and the two against each other, the out-of-range flag of
+     both, a table that requires a gradient refused, CUDA-event times of
+     both beside the twin, the backward of embedding_bag with respect to
+     its per_sample_weights and the byte bound; (b) after phase 27, the
+     same on the gradient paths' own index streams, every backward launch
+     of one chunk of phases 22, 23 and 27 kept;
  22. path (a), the flagship forward and backward pass of grtrans_tpu's
      scripts/fwdbwd_bench.py: FFJET + POLSYNCHPL at 100x100 x 400 f64
      through tools.invert.InverseProblem (rays from uout = 0.01, as the
      flagship frame), d(sum|image| / (npix 4))/d(spin, mu0) with per-stage
      recompute, pixel chunks sized to the card's free
      memory (the count printed), launches counted a chunk (quad_gather
-     forward and recompute, quad_gather_bwd_w), no plain twin called, warm
+     forward and recompute, quad_gather_bwd_w), every backward launch on
+     the kernel its picker chose (launches_by_kernel against the first
+     chunk's operands, kept in a second pass), no plain twin called, warm
      time and peak memory; the gradient against central differences on
      the card (1e-2) and, at 16x16 x 64, against the port's CPU gradient
      (1e-8);
  23. path (b), a geometry-only gradient, d/d(mu0), on the HARM3D frame of
      phase 12 through quad_gather_rows and quad_gather_rows_bwd_w (one
-     launch a chunk), checked the same way (the CPU comparison on a
-     32x24x16 snapshot);
+     launch a chunk, on the picked kernel), checked the same way (the CPU
+     comparison on a 32x24x16 snapshot);
  24. path (c), tools.emitter_observer.run on the card: (4.1, 2.3)
      recovered within 0.05, within 1e-6 of the same search on the CPU;
  25. the FFJET flagship of phase 4 at prec="mixed" (float32 trace with the
@@ -148,17 +155,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      64; 2e-3 of max|I|); InverseProblem(prec="mixed") on the flagship
      camera at 16x16 x 64, d(loss)/d(spin, mu0) at (0.998, 0.906) finite
      and within 1e-2 of the float64 gradient, launches counted (float32
-     quad_gather and quad_gather_bwd_w alone); the mu0 gradients of
-     THICKDISK, MB09, KORAL and KORAL3D (tests/test_torch_gradient_zoo.py's
-     set-up) on the card, finite, within 1e-2 of central differences there
-     and within 1e-3 of the CPU's; quad_gather_bwd_w's float32
-     instantiation against its twin at phase 21's shape.
+     quad_gather and quad_gather_bwd_w alone, the backward on the picked
+     kernel, no twin); the mu0 gradients of THICKDISK, MB09, KORAL and
+     KORAL3D (tests/test_torch_gradient_zoo.py's set-up) on the card,
+     finite, within 1e-2 of central differences there and within 1e-3 of
+     the CPU's.
 The line before the last is a JSON object of the kernels, the float32
 instantiations of the mixed paths among them (and of the gradient and
 mixed paths; no NaN token: a non-finite number is null); the last line is
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -310,10 +318,9 @@ WRAPPERS = ("quad_gather", "quad_gather_rows", "quad_gather_bwd_w",
 
 
 def reset_counts(qg):
-    qg.quad_gather.launches_by_kernel.clear()
-    qg.quad_gather_rows.launches_by_kernel.clear()
     for name in WRAPPERS:
         getattr(qg, name).launches = 0
+        getattr(qg, name).launches_by_kernel.clear()
         getattr(qg, name).launches_by_dtype.clear()
     for name in TWINS:
         getattr(qg, name).calls = 0
@@ -322,8 +329,13 @@ def reset_counts(qg):
 def read_counts(qg):
     by, rows = (qg.quad_gather.launches_by_kernel,
                 qg.quad_gather_rows.launches_by_kernel)
+    bwd, rows_bwd = (qg.quad_gather_bwd_w.launches_by_kernel,
+                     qg.quad_gather_rows_bwd_w.launches_by_kernel)
     counts = dict(tiled=by["tiled"], wide=by["wide"], generic=by["generic"],
                   rows_tiled=rows["tiled"], rows_simple=rows["simple"],
+                  bwd_tiled=bwd["tiled"], bwd_generic=bwd["generic"],
+                  rows_bwd_tiled=rows_bwd["tiled"],
+                  rows_bwd_simple=rows_bwd["simple"],
                   twin_calls=sum(getattr(qg, name).calls for name in TWINS))
     for name in WRAPPERS:
         wrapper = getattr(qg, name)
@@ -1611,32 +1623,62 @@ def bwd_bound_ms(idx, nc, nf, dtype):
                                  else "operations"), distinct
 
 
-def check_bwd(qg, name, table, idx, g, nc, nf):
-    """The weights' backward kernel against its plain twin on the card
-    (KERNEL_TOL of max|twin|, no out-of-range flag), then CUDA event times in
-    the order plain, library, kernel, kernel, library, plain.  The library
-    yardstick is the backward of embedding_bag(..., per_sample_weights=w,
-    mode="sum") with respect to w (the forward left out: its graph is
-    kept and its backward replayed).  Returns the dict of mean times, the
-    bound and max_abs_err."""
-    rows = idx.dim() == 2
-    kern = qg.quad_gather_rows_bwd_w if rows else qg.quad_gather_bwd_w
-    twin = qg.quad_gather_rows_bwd_w_ref if rows \
-        else qg.quad_gather_bwd_w_ref
+# the backward wrappers, their first design's forcing keyword and name, and
+# the read_counts key of each kernel
+BWD = {"quad_gather_bwd_w": ("generic", "bwd_"),
+       "quad_gather_rows_bwd_w": ("simple", "rows_bwd_")}
+
+
+def bwd_picked(qg, table, idx, g, nc, nf):
+    """(wrapper name, the kernel its picker sends these operands to)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (table, g))
+    if idx.dim() == 2:
+        return "quad_gather_rows_bwd_w", qg.rows_bwd_kernel(
+            idx.shape[1], nc, nf, table.element_size(), aligned)
+    return "quad_gather_bwd_w", qg.bwd_kernel(nc, nf, aligned)
+
+
+def check_bwd(qg, name, table, idx, g, nc, nf, reps=10):
+    """The weights' backward against its plain twin on the card: the kernel
+    the wrapper picks and the first design forced (generic / simple), each
+    within KERNEL_TOL of max|twin|, no out-of-range flag, and the two
+    within KERNEL_TOL of each other (both sum the fields in one order);
+    then CUDA event times in the order plain, library, first design,
+    kernel, kernel, first design, library, plain.  The library yardstick
+    is the backward of embedding_bag(..., per_sample_weights=w,
+    mode="sum") with respect to w (the forward left out: its graph is kept
+    and its backward replayed).  Returns the dict of mean times ("kernel":
+    the picked one; "tiled" and "first": each design), the bound,
+    max_abs_err and the picked kernel's name."""
+    wrapper, picked = bwd_picked(qg, table, idx, g, nc, nf)
+    force, _ = BWD[wrapper]
+    rows = wrapper == "quad_gather_rows_bwd_w"
+    kern = getattr(qg, wrapper)
+    twin = getattr(qg, wrapper + "_ref")
     n, ns = idx.shape[0], table.shape[0]
     r = idx.shape[1] if rows else 1
-    out = kern(table, idx, g, nc, nf)
     ref = twin(table, idx, g, nc, nf)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
     scale = ref.abs().max().item()
     tol = KERNEL_TOL[table.dtype]
-    print(f"{name}: max|kernel - plain| {err:.3e} (max|plain| {scale:.3e}, "
-          f"bar {tol:g} of it)")
-    if not err <= tol * scale:
-        raise AssertionError(f"{name}: {err} > {tol} * {scale}")
+
+    def first():
+        return kern(table, idx, g, nc, nf, **{force: True})
+
+    def kernel():
+        return kern(table, idx, g, nc, nf)
+
+    outs = {fn.__name__: fn() for fn in (kernel, first)}
+    torch.cuda.synchronize()
+    errs = {k: (v - ref).abs().max().item() for k, v in outs.items()}
+    apart = (outs["kernel"] - outs["first"]).abs().max().item()
+    print(f"{name}: max|{picked} - plain| {errs['kernel']:.3e}, "
+          f"max|{force} - plain| {errs['first']:.3e}, max|{picked} - "
+          f"{force}| {apart:.3e} (max|plain| {scale:.3e}, bar {tol:g} of it)")
+    if not max(*errs.values(), apart) <= tol * scale:
+        raise AssertionError(f"{name}: {errs}, {apart} > {tol} * {scale}")
     if qg.error_flag(table.device).item() != 0:
         raise AssertionError(f"{name}: out-of-range flag set")
+    del outs
     bag_idx = (idx.long().reshape(n, r, 1) * nc
                + torch.arange(nc, device=idx.device)).reshape(n, r * nc)
     w = torch.ones((n, r * nc), dtype=table.dtype, device=table.device,
@@ -1645,6 +1687,7 @@ def check_bwd(qg, name, table, idx, g, nc, nf):
         bag_idx, table.view(ns * nc, nf), per_sample_weights=w, mode="sum")
     lib = torch.autograd.grad(bag, w, g, retain_graph=True)[0]
     lib_err = (lib.view_as(ref) - ref).abs().max().item()
+    del lib, ref
 
     def plain():
         return twin(table, idx, g, nc, nf)
@@ -1652,71 +1695,159 @@ def check_bwd(qg, name, table, idx, g, nc, nf):
     def library():
         return torch.autograd.grad(bag, w, g, retain_graph=True)
 
-    def kernel():
-        return kern(table, idx, g, nc, nf)
-
+    kernels = [first, kernel] if picked != force else [first]
+    order = [plain, library, *kernels]
     times = {}
-    for fn in (plain, library, kernel, kernel, library, plain):
-        times.setdefault(fn.__name__, []).append(cuda_ms(fn, reps=10))
+    for fn in order + order[::-1]:
+        times.setdefault(fn.__name__, []).append(cuda_ms(fn, reps=reps))
     bound, bound_by, distinct = bwd_bound_ms(idx, nc, nf, table.dtype)
     res = {k: sum(v) / len(v) for k, v in times.items()}
-    res.update(bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+    res.setdefault("kernel", res["first"])
+    res.update(tiled=res["kernel"] if picked == "tiled" else None,
+               bound_ms=bound, bound_by=bound_by, max_abs_err=errs["kernel"],
+               picked=picked, queries=n, distinct_rows=distinct)
+    label = dict(kernel=picked, first=force)
     print(f"{name}: N={n} R={r} table=({ns}, {nc * nf}) {table.dtype}, "
-          f"{distinct} distinct rows: kernel "
-          + "/".join(f"{t:.4f}" for t in times["kernel"]) + " ms, plain "
-          + "/".join(f"{t:.4f}" for t in times["plain"])
-          + " ms, embedding_bag backward "
-          + "/".join(f"{t:.4f}" for t in times["library"])
-          + f" ms; bound {bound:.4f} ms by {bound_by} (share of bound "
-          f"{bound / res['kernel']:.3f}); max|embedding_bag - plain| "
+          f"{distinct} distinct rows: ms "
+          + "; ".join(f"{label.get(k, k)} "
+                      + "/".join(f"{t:.4f}" for t in v)
+                      for k, v in times.items())
+          + f" (library: embedding_bag's backward); bound {bound:.4f} ms by "
+          f"{bound_by}; share of bound {picked} "
+          f"{bound / res['kernel']:.3f}, {force} {bound / res['first']:.3f} "
+          f"(the wrapper picks {picked}); max|embedding_bag - plain| "
           f"{lib_err:.2e}")
     del bag, w
     return res
 
 
-def bwd_kernel_phase(dev, qg):
-    """Phase 21: both backward kernels against their twins at the shapes
-    of the gradient paths (uniformly random rows, N = 4e6): FFJET f64
-    (16384, 4 x 9) and the snapshot's phi-pair-packed table (4,718,592,
-    2 x 10), R = 4; the out-of-range flag of each; a table that requires
-    a gradient refused."""
-    rng = np.random.default_rng(SEED + 21)
-    out = {}
-    for name, ns, r, nc, nf in (
-            ("quad_gather_bwd_w", FFJET_NX ** 2, None, 4, 9),
-            ("quad_gather_rows_bwd_w", int(np.prod(SNAPSHOT_NX)), 4, 2,
-             10)):
-        shape = (N_QUERIES,) if r is None else (N_QUERIES, r)
-        table = torch.as_tensor(rng.standard_normal((ns, nc * nf)),
-                                device=dev)
-        idx = torch.as_tensor(rng.integers(0, ns, shape), dtype=torch.int32,
-                              device=dev)
-        g = torch.as_tensor(rng.standard_normal((N_QUERIES, nf)), device=dev)
-        out[name] = check_bwd(qg, f"{name} f64, random rows", table, idx, g,
-                              nc, nf)
-        # an out-of-range row: NaN in that query's dw, the flag set
-        bad = idx[:3].clone()
-        bad.view(-1)[r or 1] = ns
-        kern = getattr(qg, name)
-        dw = kern(table, bad, g[:3].contiguous(), nc, nf)
-        flag = qg.error_flag(dev)
+def bwd_flag_check(qg, name, table, idx, g, nc, nf):
+    """An out-of-range row in query 1: the flag set, NaN in that query's
+    dw and in no other, on the picked kernel and on the first design."""
+    wrapper, picked = bwd_picked(qg, table, idx, g, nc, nf)
+    force, _ = BWD[wrapper]
+    kern = getattr(qg, wrapper)
+    bad = idx[:300].clone()
+    bad.view(300, -1)[1, -1] = table.shape[0]
+    flag = qg.error_flag(table.device)
+    for kw in ({}, {force: True}):
+        dw = kern(table, bad, g[:300].contiguous(), nc, nf, **kw)
         torch.cuda.synchronize()
         if flag.item() != 1 or not torch.isnan(dw[1]).all() \
-                or torch.isnan(dw[[0, 2]]).any():
-            raise AssertionError(f"{name}: out-of-range row not flagged")
+                or torch.isnan(dw[[0, *range(2, 300)]]).any():
+            raise AssertionError(f"{name} {kw or picked}: out-of-range row "
+                                 "not flagged")
         flag.zero_()
+    print(f"{name}: out-of-range row flagged, its dw NaN ({picked} and "
+          f"{force})")
+
+
+BWD_SHAPES = (   # name, rows, R (None: quad_gather_bwd_w), nc, nf, dtype
+    ("quad_gather_bwd_w", FFJET_NX ** 2, None, 4, 9, torch.float64),
+    ("quad_gather_bwd_w f32", FFJET_NX ** 2, None, 4, 9, torch.float32),
+    ("quad_gather_bwd_w polsynchpl", 201, None, 2, 6, torch.float64),
+    ("quad_gather_rows_bwd_w", int(np.prod(SNAPSHOT_NX)), 4, 2, 10,
+     torch.float64))
+
+
+def bwd_kernel_phase(dev, qg):
+    """Phase 21 (a): both backward kernels against their twins at the
+    shapes of the gradient paths (uniformly random rows, N = 4e6): FFJET
+    (16384, 4 x 9) in f64 and f32, the POLSYNCHPL cutoff table (201, 2 x
+    6) and the snapshot's phi-pair-packed table (4,718,592, 2 x 10), R =
+    4; each the picked kernel beside the first design forced; the
+    out-of-range flag of each; a table that requires a gradient
+    refused."""
+    rng = np.random.default_rng(SEED + 21)
+    out = {}
+    for name, ns, r, nc, nf, dtype in BWD_SHAPES:
+        shape = (N_QUERIES,) if r is None else (N_QUERIES, r)
+        table = torch.as_tensor(rng.standard_normal((ns, nc * nf)),
+                                dtype=dtype, device=dev)
+        idx = torch.as_tensor(rng.integers(0, ns, shape), dtype=torch.int32,
+                              device=dev)
+        g = torch.as_tensor(rng.standard_normal((N_QUERIES, nf)),
+                            dtype=dtype, device=dev)
+        label = f"{name}{'' if dtype == torch.float32 else ' f64'}, " \
+            "random rows"
+        out[name] = check_bwd(qg, label, table, idx, g, nc, nf)
+        bwd_flag_check(qg, label, table, idx, g, nc, nf)
         table.requires_grad_()
         w = torch.ones(shape + (nc,), dtype=table.dtype, device=dev)
         fwd = qg.quad_gather if r is None else qg.quad_gather_rows
         try:
             fwd(table, idx, w, nc, nf)
         except NotImplementedError as e:
-            print(f"{name}: out-of-range row flagged, its dw NaN; a table "
-                  f"that requires a gradient refused ({e})")
+            print(f"{name}: a table that requires a gradient refused ({e})")
         else:
             raise AssertionError("a table that requires grad was gathered")
         del table, idx, g, w
+    torch.cuda.empty_cache()
     return out
+
+
+def capture_bwd(qg, run):
+    """run() with the two backward wrappers wrapped so that each launch's
+    operands are kept (as phase 12 keeps the frame's rows).  Returns the
+    list of (wrapper name, operands).  The wrapped name is what the
+    wrapper's own counting reaches meanwhile, so it carries counters of
+    its own, which nothing reads: the counts of a pass are read from
+    another, counted pass."""
+    kept = []
+    originals = {name: getattr(qg, name) for name in BWD}
+
+    def wrap(name, fn):
+        def keep(*args, **kw):
+            kept.append((name, args))
+            return fn(*args, **kw)
+        keep.launches = 0
+        keep.launches_by_kernel = collections.Counter()
+        keep.launches_by_dtype = collections.Counter()
+        return keep
+
+    for name, fn in originals.items():
+        setattr(qg, name, wrap(name, fn))
+    try:
+        run()
+    finally:
+        for name, fn in originals.items():
+            setattr(qg, name, fn)
+    return kept
+
+
+def check_picked(qg, name, kept, counts):
+    """Every backward launch of one pass (the operands `kept` of a captured
+    pass, the launch counts of a counted one) went to the kernel its picker
+    chose for those operands, and no twin ran."""
+    expected = dict.fromkeys(("bwd_tiled", "bwd_generic", "rows_bwd_tiled",
+                              "rows_bwd_simple"), 0)
+    for _, args in kept:
+        wrapper, picked = bwd_picked(qg, *args)
+        expected[BWD[wrapper][1] + picked] += 1
+    got = {k: counts[k] for k in expected}
+    print(f"{name}: backward launches by kernel {got}, picked {expected}; "
+          f"twin calls {counts['twin_calls']}")
+    if got != expected or counts["twin_calls"]:
+        raise AssertionError(f"{name}: backward launches {got}, the pickers "
+                             f"chose {expected}; twin calls "
+                             f"{counts['twin_calls']}")
+
+
+def bwd_stream_phase(qg, streams):
+    """Phase 21 (b): the backward kernels on the gradient paths' own index
+    streams, kept in phases 22, 23 and 27: each launch of a pass, the
+    picked kernel beside the first design, as check_bwd."""
+    out = {}
+    for path, kept in streams.items():
+        for i, (wrapper, (table, idx, g, nc, nf)) in enumerate(kept):
+            name = (f"{wrapper} ({table.shape[0]}, {nc}x{nf}) "
+                    f"{dtype_name(table)}, {path}'s rows #{i}")
+            out[name] = check_bwd(qg, name, table, idx, g, nc, nf)
+    return out
+
+
+def dtype_name(t):
+    return "f64" if t.dtype == torch.float64 else "f32"
 
 
 def chunk_for(render_loss, npix, probe=500):
@@ -1741,8 +1872,11 @@ def grad_path(qg, dev, name, prob, params):
     InverseProblem `prob` in pixel chunks, gradients accumulated: a counted
     run (launches a chunk, with the counts set to 0 before each chunk's
     forward and read after its backward), then a warm one timed with its
-    peak memory; central differences of the same loss on the card.
-    Returns (summed counts, a record of the path)."""
+    peak memory; central differences of the same loss on the card; the
+    first chunk once more with the backward operands kept, every backward
+    launch of the counted chunk held to the kernel its picker chose for
+    them.  Returns (summed counts, a record of the path, the kept
+    operands)."""
     npix = prob.npix
 
     def leaves():
@@ -1783,6 +1917,8 @@ def grad_path(qg, dev, name, prob, params):
     total = {k: sum(c[k] for c in counts) for k in counts[0]}
     if total["twin_calls"] != 0:
         raise AssertionError(f"{name}: a plain twin ran on the card")
+    kept = capture_bwd(qg, lambda: chunk_loss(leaves(), (0, chunk)).backward())
+    check_picked(qg, name, kept, counts[0])
     if not (np.isfinite(loss) and all(np.isfinite(v)
                                       for v in grads.values())):
         raise AssertionError(f"{name}: loss {loss}, gradients {grads}")
@@ -1843,7 +1979,7 @@ def grad_path(qg, dev, name, prob, params):
                        grads=grads, fd=fd, fd_rel=rel,
                        smooth_pixels=smooth_frac, per_chunk=counts[0],
                        first_ms=first_s * 1e3, warm_ms=warm_s * 1e3,
-                       peak_gib=peak / 2 ** 30)
+                       peak_gib=peak / 2 ** 30), kept
 
 
 def grad_card_vs_cpu(name, make, params, qg):
@@ -1888,13 +2024,14 @@ def fwdbwd_phase(dev, qg):
                 uout=FLAGSHIP_UOUT, device=device)
 
         params = dict(spin=0.9, mu0=0.9)
-        counts, rec = grad_path(qg, dev, "fwdbwd_ffjet", make(dev), params)
+        counts, rec, kept = grad_path(qg, dev, "fwdbwd_ffjet", make(dev),
+                                      params)
         per = rec["per_chunk"]
         if per["quad_gather_bwd_w"] < 1 or per["quad_gather_rows_bwd_w"]:
             raise AssertionError(f"fwdbwd_ffjet: launches {per}")
         grad_card_vs_cpu("fwdbwd_ffjet", lambda d: make(d, GRAD_NN), params,
                          qg)
-    return counts, rec
+    return counts, rec, kept
 
 
 def harm3d_grad_phase(dev, qg, model):
@@ -1917,8 +2054,8 @@ def harm3d_grad_phase(dev, qg, model):
                         mu=kw["muval"], gmin=kw["gmin"]),
             model=snap, device=device)
 
-    counts, rec = grad_path(qg, dev, "grad_harm3d", make(dev, snap=model),
-                            dict(mu0=kw["mumin"]))
+    counts, rec, kept = grad_path(qg, dev, "grad_harm3d",
+                                  make(dev, snap=model), dict(mu0=kw["mumin"]))
     per = rec["per_chunk"]
     if per["quad_gather_rows_bwd_w"] != 1 or per["quad_gather_bwd_w"]:
         raise AssertionError(f"grad_harm3d: launches {per}")
@@ -1927,7 +2064,7 @@ def harm3d_grad_phase(dev, qg, model):
              for d in ("cuda", "cpu")}
     grad_card_vs_cpu("grad_harm3d", lambda d: make(
         d, GRAD_NN, snaps[d.type]), dict(mu0=kw["mumin"]), qg)
-    return counts, rec
+    return counts, rec, kept
 
 
 def emitter_phase(dev):
@@ -2147,15 +2284,21 @@ def mixed_card_vs_cpu_phase(dev, qg):
                 gridvals=(-40.0, 20.0, -20.0, 40.0),
                 fixed=dict(dfile=str(dfile), ntscl=2.0, nrscl=70.0),
                 uout=FLAGSHIP_UOUT, device=dev, prec=prec)
-            p = {k: torch.tensor(v, dtype=torch.float64, device=dev,
-                                 requires_grad=True)
-                 for k, v in (("spin", 0.998), ("mu0", 0.906))}
+            def leaves():
+                return {k: torch.tensor(v, dtype=torch.float64, device=dev,
+                                        requires_grad=True)
+                        for k, v in (("spin", 0.998), ("mu0", 0.906))}
+
+            p = leaves()
             reset_counts(qg)
             loss = prob.render(p).abs().sum() / (prob.npix * 4)
             loss.backward()
             torch.cuda.synchronize()
             if prec == "mixed":
                 counts = read_counts(qg)
+                kept = capture_bwd(qg, lambda: (prob.render(leaves()).abs()
+                                                .sum().backward()))
+                check_picked(qg, "mixed gradient", kept, counts)
             grads[prec] = {k: v.grad.item() for k, v in p.items()}
     rel = {k: abs(grads["mixed"][k] - v) / abs(v)
            for k, v in grads["f64"].items()}
@@ -2207,23 +2350,7 @@ def mixed_card_vs_cpu_phase(dev, qg):
             raise AssertionError(f"{name} mu0 gradient {got}")
         rec[f"{name} mu0"] = dict(card=ad, fd=fd, cpu=got["cpu"][0],
                                   fd_rel=fd_rel, cpu_rel=cpu_rel)
-    return counts, rec
-
-
-def bwd_f32_phase(dev, qg):
-    """quad_gather_bwd_w's float32 instantiation, which the mixed gradient
-    launches, against its twin at the f64 kernel's shape of phase 21 (FFJET
-    (16384, 4 x 9), 4e6 uniformly random rows)."""
-    rng = np.random.default_rng(SEED + 27)
-    ns = FFJET_NX ** 2
-    table = torch.as_tensor(rng.standard_normal((ns, 36)),
-                            dtype=torch.float32, device=dev)
-    idx = torch.as_tensor(rng.integers(0, ns, N_QUERIES), dtype=torch.int32,
-                          device=dev)
-    g = torch.as_tensor(rng.standard_normal((N_QUERIES, 9)),
-                        dtype=torch.float32, device=dev)
-    return check_bwd(qg, "quad_gather_bwd_w f32, random rows", table, idx, g,
-                     4, 9)
+    return counts, rec, kept
 
 
 def finite_or_none(obj):
@@ -2315,8 +2442,11 @@ def run(dev):
     paths["mesh_ffjet"], paths["slab_harm3d"], slabs = mesh_phase(
         dev, qg, flagship, snapshot, snapshot_image, frame_times)
     bwd = bwd_kernel_phase(dev, qg)
-    paths["fwdbwd_ffjet"], fwdbwd = fwdbwd_phase(dev, qg)
-    paths["grad_harm3d"], grad_harm3d = harm3d_grad_phase(dev, qg, snapshot)
+    streams = {}
+    paths["fwdbwd_ffjet"], fwdbwd, streams["fwdbwd_ffjet"] = fwdbwd_phase(
+        dev, qg)
+    paths["grad_harm3d"], grad_harm3d, streams["grad_harm3d"] = \
+        harm3d_grad_phase(dev, qg, snapshot)
     emitter = emitter_phase(dev)
     grad_paths = ("fwdbwd_ffjet", "grad_harm3d")
     # 25-27. prec="mixed"
@@ -2326,8 +2456,11 @@ def run(dev):
     paths["mixed_harm3d"], mixed_rows, mixed_snapshot = mixed_snapshot_phase(
         dev, qg, snapshot, snapshot_image)
     del snapshot
-    paths["mixed_grad_ffjet"], mixed_cpu = mixed_card_vs_cpu_phase(dev, qg)
-    bwd["quad_gather_bwd_w f32"] = bwd_f32_phase(dev, qg)
+    paths["mixed_grad_ffjet"], mixed_cpu, streams["mixed_grad_ffjet"] = \
+        mixed_card_vs_cpu_phase(dev, qg)
+    # 21 (b). the backward kernels on the gradient paths' own rows
+    bwd_streams = bwd_stream_phase(qg, streams)
+    del streams
     mixed_paths = ("mixed_ffjet", "mixed_harm3d", "mixed_grad_ffjet")
 
     main = shapes["ffjet f64"]
@@ -2366,16 +2499,31 @@ def run(dev):
         "plain_ms": rows["plain"], "bound_ms": rows["bound_ms"],
         "bound_by": rows["bound_by"], "library_ms": rows["library"],
         "simple_ms": rows["simple"]}] + [{
-        "name": name, "route": "cuda", "source": source,
+        "name": name + suffix, "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(paths[p][name] for p in grad_paths),
-        "launches_by_path": {p: paths[p][name] for p in grad_paths},
-        "max_abs_err": bwd[name]["max_abs_err"], "ms": bwd[name]["kernel"],
-        "plain_ms": bwd[name]["plain"], "bound_ms": bwd[name]["bound_ms"],
-        "bound_by": bwd[name]["bound_by"],
-        "library_ms": bwd[name]["library"]} for name, replaces in (
-            ("quad_gather_bwd_w", "grtrans_tpu/ops/pallas_gather.py:49"),
-            ("quad_gather_rows_bwd_w", "grtrans_tpu/fluid/grmhd3d.py:212"))]
+        "launches": sum(paths[p][name + suffix] for p in on),
+        "launches_by_path": {p: paths[p][name + suffix] for p in on},
+        "launches_by_kernel": {
+            k: sum(paths[p][BWD[name][1] + k] for p in on)
+            for k in ("tiled", BWD[name][0])},
+        "max_abs_err": t["max_abs_err"], "ms": t["kernel"],
+        "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library"],
+        "tiled_ms": t["tiled"], BWD[name][0] + "_ms": t["first"],
+        "shapes": {k: v for k, v in list(bwd.items())
+                   + list(bwd_streams.items())
+                   if (k.startswith(name + " ") or k == name)
+                   and ("f32" in k) == (suffix == "_f32")}}
+            for name, suffix, replaces, t, on in (
+                ("quad_gather_bwd_w", "",
+                 "grtrans_tpu/ops/pallas_gather.py:49",
+                 bwd["quad_gather_bwd_w"], grad_paths),
+                ("quad_gather_rows_bwd_w", "",
+                 "grtrans_tpu/fluid/grmhd3d.py:212",
+                 bwd["quad_gather_rows_bwd_w"], grad_paths),
+                ("quad_gather_bwd_w", "_f32",
+                 "grtrans_tpu/ops/pallas_gather.py:49",
+                 bwd["quad_gather_bwd_w f32"], ("mixed_grad_ffjet",)))]
         + [{
         "name": name + "_f32", "route": "cuda", "source": source,
         "replaces": replaces,
@@ -2389,9 +2537,7 @@ def run(dev):
                 ("quad_gather", "grtrans_tpu/ops/pallas_gather.py:49",
                  mixed_frame),
                 ("quad_gather_rows", "grtrans_tpu/fluid/grmhd3d.py:212",
-                 mixed_rows),
-                ("quad_gather_bwd_w", "grtrans_tpu/ops/pallas_gather.py:49",
-                 bwd["quad_gather_bwd_w f32"]))],
+                 mixed_rows))],
         "gradient_paths": {"fwdbwd_ffjet": fwdbwd,
                            "grad_harm3d": grad_harm3d,
                            "emitter_observer": emitter},

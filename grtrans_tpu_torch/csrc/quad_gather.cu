@@ -31,7 +31,10 @@
 //    memory at an odd stride, each thread combines its own query from
 //    there (corners summed in the order c = 0..NC-1), and the tile's
 //    outputs go back through shared memory so that they leave in 16-byte
-//    stores on consecutive addresses.  No run-time divide.
+//    stores on consecutive addresses.  No run-time divide.  The pipeline
+//    (tiled_pipeline) is written once; its epilogue is a template
+//    parameter, so that the weights' backward, quad_gather_bwd_w_tiled,
+//    runs on the same steps (the end of this file).
 //  * quad_gather_wide<T>, for wide rows (nf >= 32; PHATDISK's pair-packed
 //    table has nc x nf = 2 x 101): a warp a query, eight queries a warp in
 //    sequence.  One lane reads the index and nc lanes the weights, once,
@@ -75,7 +78,10 @@
 //    from shared memory, rows r-major then corners c, as the plain version
 //    sums; the outputs leave through shared memory in 16-byte stores.  The
 //    launch set-up (shared-memory attribute, resident blocks) is worked out
-//    once per instantiation, device and row size.  Measured (PERF.md): the
+//    once per kernel, device and row size.  The pipeline (rows_pipeline:
+//    index fetch, ring, dedup, tile stream) is written once; its epilogue
+//    is a template parameter, so that the weights' backward,
+//    quad_gather_rows_bwd_w_tiled, runs on it too.  Measured (PERF.md): the
 //    frame's rows take 54% of their byte bound; uniformly random rows of a
 //    755 MB table stay at 32% whatever the tile, ring depth or
 //    deduplication.
@@ -101,7 +107,10 @@
 // way: `variant` 0 tiled (`dedup` 0 every slot copies its row, 1 a warp's
 // lanes share a row's copy), 1 simple.  quad_gather_bwd_w_f32 / _f64 and
 // quad_gather_rows_bwd_w_f32 / _f64 launch the backward with respect to
-// the weights (the end of this file).
+// the weights (the end of this file): `variant` 0 tiled (a shape of the
+// tiled forward, operands on 16 bytes), 1 the first design (generic for
+// R = 1, simple for rows), which takes any shape.  A tiled launch the
+// shape or alignment does not admit returns cudaErrorInvalidValue.
 
 #include <cstdint>
 #include <cstdio>
@@ -170,19 +179,142 @@ __global__ void quad_gather_generic(const T* __restrict__ table,
 
 constexpr int kTile = 128;  // queries, and threads, per block
 
+// ---- the R = 1 tile pipeline, shared by quad_gather_tiled and
+// quad_gather_bwd_w_tiled ----
+//
+// The epilogue, a template parameter, is what a kernel does with a query
+// once its row lies in shared memory: TiledCombine (the forward: x the
+// weights (N, NC), NF outputs a query) or TiledWeightGrad (the backward
+// with respect to the weights: x the output's gradient (N, NF), NC outputs
+// a query).  Each provides OUT (outputs a query), load (the query's
+// operand, read before the rows are issued), settle (run while the rows'
+// loads are in flight) and compute (the query's OUT values from its row).
+
 template <typename T, int NC, int NF>
-__global__ void __launch_bounds__(kTile)
-quad_gather_tiled(const T* __restrict__ table,
-                  const int32_t* __restrict__ idx,
-                  const T* __restrict__ w, T* __restrict__ out,
-                  int* __restrict__ err, long long n, int ns) {
+struct TiledCombine {
+  static constexpr int OUT = NF;
+  T wq[NC];
+
+  // this thread's weights, read once (16-byte loads where NC allows)
+  __device__ __forceinline__ void load(const T* __restrict__ w, long long q0,
+                                       int t, int nq) {
+    using V = typename Vec16<T>::type;
+    constexpr int VEC = 16 / sizeof(T);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) wq[c] = T(0);
+    if (t >= nq) return;
+    const T* wp = w + (q0 + t) * NC;
+    if constexpr (NC % VEC == 0) {
+#pragma unroll
+      for (int i = 0; i < NC / VEC; ++i)
+        unpack(__ldg(reinterpret_cast<const V*>(wp) + i), wq + i * VEC);
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) wq[c] = __ldg(wp + c);
+    }
+  }
+
+  __device__ __forceinline__ void settle(T*, int, int) {}
+
+  // corners in the order c = 0..NC-1
+  __device__ __forceinline__ void compute(const T* row, T* acc) const {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      T a = T(0);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) a += wq[c] * row[c * NF + f];
+      acc[f] = a;
+    }
+  }
+};
+
+template <typename T, int NC, int NF>
+struct TiledWeightGrad {
+  using V = typename Vec16<T>::type;
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int OUT = NC;
+  // a query's g is whole 16-byte pieces (float64 2x6, 4x6, 4x10, 2x2):
+  // each thread loads its own; else the tile's g, one run of kTile NF
+  // values, arrives as pieces t, t + kTile, ... a thread and passes
+  // through shared memory
+  static constexpr bool OWN = NF % VEC == 0;
+  static constexpr int GV = (NF + VEC - 1) / VEC;
+  V gv[GV];
+  T gt;       // an element of a ragged last tile's tail
+  int total;  // values of g in this tile
+  T gq[NF];   // this thread's query's g
+
+  // g read once, in 16-byte loads
+  __device__ __forceinline__ void load(const T* __restrict__ g, long long q0,
+                                       int t, int nq) {
+    if constexpr (OWN) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) gq[f] = T(0);
+      if (t < nq) {
+        const V* gp = reinterpret_cast<const V*>(g + (q0 + t) * NF);
+#pragma unroll
+        for (int i = 0; i < NF / VEC; ++i) unpack(__ldg(gp + i), gq + i * VEC);
+      }
+    } else {
+      total = nq * NF;
+      const T* gp = g + q0 * NF;
+      const int nvec = total / VEC;
+#pragma unroll
+      for (int i = 0; i < GV; ++i) {
+        const int k = t + i * kTile;
+        if (k < nvec) gv[i] = __ldg(reinterpret_cast<const V*>(gp) + k);
+      }
+      const int k = nvec * VEC + t;
+      if (k < total) gt = __ldg(gp + k);
+    }
+  }
+
+  // while the rows' loads are in flight: the tile's run through shared
+  // memory, from which each thread takes its query's NF values
+  __device__ __forceinline__ void settle(T* s_buf, int t, int nq) {
+    if constexpr (!OWN) {
+      const int nvec = total / VEC;
+#pragma unroll
+      for (int i = 0; i < GV; ++i) {
+        const int k = t + i * kTile;
+        if (k < nvec) reinterpret_cast<V*>(s_buf)[k] = gv[i];
+      }
+      const int k = nvec * VEC + t;
+      if (k < total) s_buf[k] = gt;
+      __syncthreads();
+#pragma unroll
+      for (int f = 0; f < NF; ++f) gq[f] = t < nq ? s_buf[t * NF + f] : T(0);
+      __syncthreads();   // the stage is free for the rows
+    }
+  }
+
+  // dw[c] = sum_f g[f] row[c NF + f], fields in the order f = 0..NF-1
+  __device__ __forceinline__ void compute(const T* row, T* acc) const {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      T a = T(0);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) a += gq[f] * row[c * NF + f];
+      acc[c] = a;
+    }
+  }
+};
+
+template <typename T, int NC, int NF, class Epi>
+__device__ __forceinline__ void tiled_pipeline(const T* __restrict__ table,
+                                               const int32_t* __restrict__ idx,
+                                               const T* __restrict__ x,
+                                               T* __restrict__ out,
+                                               int* __restrict__ err,
+                                               long long n, long long ns) {
   using V = typename Vec16<T>::type;
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte piece
   constexpr int ROW = NC * NF;          // elements per table row
   static_assert(ROW % VEC == 0, "rows must be whole 16-byte pieces");
   constexpr int RV = ROW / VEC;         // pieces per row, and per thread
   constexpr int STRIDE = ROW | 1;       // odd: no bank conflict on reads
-  static_assert(kTile * NF <= kTile * STRIDE, "output stage fits");
+  constexpr int OUT = Epi::OUT;
+  static_assert(NF <= STRIDE && OUT <= STRIDE, "g and output stages fit");
   static_assert(kTile * STRIDE * sizeof(T) + kTile * 4 <= 48 * 1024,
                 "static shared stage fits");
 
@@ -194,12 +326,10 @@ quad_gather_tiled(const T* __restrict__ table,
   const long long left = n - q0;
   const int nq = left < kTile ? static_cast<int>(left) : kTile;
 
-  // 1. this thread's query: index and weights, read once
+  // 1. this thread's query: index and the epilogue's operand, read once
   int row = -1;
   bool bad = false;
-  T wq[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) wq[c] = T(0);
+  Epi epi;
   if (t < nq) {
     row = __ldg(idx + q0 + t);
     if (row < 0 || row >= ns) {
@@ -207,16 +337,8 @@ quad_gather_tiled(const T* __restrict__ table,
       row = -1;
       atomicExch(err, 1);
     }
-    const T* wp = w + (q0 + t) * NC;
-    if constexpr (NC % VEC == 0) {
-#pragma unroll
-      for (int i = 0; i < NC / VEC; ++i)
-        unpack(__ldg(reinterpret_cast<const V*>(wp) + i), wq + i * VEC);
-    } else {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) wq[c] = __ldg(wp + c);
-    }
   }
+  epi.load(x, q0, t, nq);
   s_row[t] = row;
   __syncthreads();
 
@@ -235,6 +357,7 @@ quad_gather_tiled(const T* __restrict__ table,
                     table + static_cast<long long>(r) * ROW) + piece)
         : pack(zero);
   }
+  epi.settle(s_buf, t, nq);
 #pragma unroll
   for (int i = 0; i < RV; ++i) {
     const int k = i * kTile + t;
@@ -248,27 +371,44 @@ quad_gather_tiled(const T* __restrict__ table,
   }
   __syncthreads();
 
-  // 3. combine this thread's query, corners in the order c = 0..NC-1
-  T acc[NF];
+  // 3. this thread's query from its row in shared memory
+  T acc[OUT];
+  epi.compute(s_buf + t * STRIDE, acc);
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    T a = T(0);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) a += wq[c] * s_buf[t * STRIDE + c * NF + f];
-    acc[f] = bad ? quiet_nan<T>() : a;
-  }
+  for (int o = 0; o < OUT; ++o)
+    if (bad) acc[o] = quiet_nan<T>();
   __syncthreads();
 
   // 4. outputs through shared memory, then 16-byte stores in order
 #pragma unroll
-  for (int f = 0; f < NF; ++f) s_buf[t * NF + f] = acc[f];
+  for (int o = 0; o < OUT; ++o) s_buf[t * OUT + o] = acc[o];
   __syncthreads();
-  const int total = nq * NF;
-  T* o = out + q0 * NF;
+  const int total = nq * OUT;
+  T* o = out + q0 * OUT;
   const int nvec = total / VEC;
   for (int k = t; k < nvec; k += kTile)
     reinterpret_cast<V*>(o)[k] = *reinterpret_cast<const V*>(s_buf + k * VEC);
   for (int k = nvec * VEC + t; k < total; k += kTile) o[k] = s_buf[k];
+}
+
+template <typename T, int NC, int NF>
+__global__ void __launch_bounds__(kTile)
+quad_gather_tiled(const T* __restrict__ table,
+                  const int32_t* __restrict__ idx,
+                  const T* __restrict__ w, T* __restrict__ out,
+                  int* __restrict__ err, long long n, long long ns) {
+  tiled_pipeline<T, NC, NF, TiledCombine<T, NC, NF>>(table, idx, w, out, err,
+                                                     n, ns);
+}
+
+template <typename T, int NC, int NF>
+__global__ void __launch_bounds__(kTile)
+quad_gather_bwd_w_tiled(const T* __restrict__ table,
+                        const int32_t* __restrict__ idx,
+                        const T* __restrict__ g, T* __restrict__ dw,
+                        int* __restrict__ err, long long n, long long ns) {
+  tiled_pipeline<T, NC, NF, TiledWeightGrad<T, NC, NF>>(table, idx, g, dw,
+                                                        err, n, ns);
 }
 
 constexpr int kWideWarps = 8;    // warps per block
@@ -388,7 +528,8 @@ quad_gather_rows_simple(const T* __restrict__ table,
   }
 }
 
-// ---- the tiled multi-row kernel: bulk copies into a two-stage ring ----
+// ---- the multi-row pipeline: bulk copies into a two-stage ring, shared
+// by quad_gather_rows_tiled and quad_gather_rows_bwd_w_tiled ----
 
 // the tile and the ring: 128 slots x 2 stages measured best of 128 / 256
 // slots and 2-4 stages (PERF.md)
@@ -443,8 +584,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "memory");
     if (done) return;
     if (global_ns() - start > 1000000000ull) {
-      printf("quad_gather_rows_tiled: block %d thread %d: barrier phase of "
-             "parity %u did not end\n", blockIdx.x, threadIdx.x, parity);
+      printf("quad_gather rows pipeline: block %d thread %d: barrier phase "
+             "of parity %u did not end\n", blockIdx.x, threadIdx.x, parity);
       __trap();
     }
   }
@@ -460,32 +601,194 @@ __device__ __forceinline__ void bulk_copy_row(void* dst, const void* src,
       : "memory");
 }
 
-template <typename T, int R, int NC>
-__host__ __device__ constexpr int rows_tile_queries() {
-  return kRowsSlots / R;
-}
+// The epilogue, a template parameter, is what a kernel does with a tile
+// once its rows lie in shared memory: RowsCombine (the forward: x the
+// weights (N, R, NC), nf outputs a query) or RowsWeightGrad (the backward
+// with respect to the weights: x the output's gradient (N, nf), R NC
+// outputs a query).  Each provides stage_elems / out_elems (shared memory
+// a stage's operand and the output stage take, in elements), fetch (its
+// operand of the tile ahead, into registers), store (those registers into
+// the stage, when the tile is issued) and finish (the tile's outputs from
+// the stage, stored in 16-byte pieces).
 
-// dynamic shared memory of quad_gather_rows_tiled: the two stages' rows and
-// weights, then the output stage
 template <typename T, int R, int NC>
-size_t rows_tiled_smem(int nf) {
-  return static_cast<size_t>(kRowsStages) * kRowsSlots *
-             (static_cast<size_t>(NC) * nf + NC) * sizeof(T) +
-         static_cast<size_t>(rows_tile_queries<T, R, NC>()) * nf * sizeof(T);
-}
+struct RowsCombine {
+  static constexpr int Q = kRowsSlots / R;   // queries a tile
+  T wv[NC];
 
-// DEDUP: lanes of a warp with one row share a copy; else every slot
-// copies its row
-template <typename T, int R, int NC, bool DEDUP>
-__global__ void __launch_bounds__(kRowsSlots)
-quad_gather_rows_tiled(const T* __restrict__ table,
-                       const int32_t* __restrict__ idx,
-                       const T* __restrict__ w, T* __restrict__ out,
-                       int* __restrict__ err, long long n, long long ns,
-                       int nf) {
+  __host__ __device__ static constexpr int stage_elems(int) {
+    return kRowsSlots * NC;
+  }
+  __host__ __device__ static constexpr int out_elems(int nf) { return Q * nf; }
+
+  // the weights of slot t of the tile ahead, element k of idx
+  __device__ __forceinline__ void fetch(const T* __restrict__ w, long long,
+                                        long long k, bool live, long long,
+                                        int, int) {
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) wv[c] = __ldg(w + k * NC + c);
+    }
+  }
+
+  __device__ __forceinline__ void store(T* sx, int t, bool live) const {
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) sx[t * NC + c] = wv[c];
+    }
+  }
+
+  // one thread per (query, field) of the tile, rows r-major then corners
+  // c; outputs through shared memory in 16-byte stores
+  __device__ __forceinline__ void finish(long long tile, long long n, int nf,
+                                         int t, const T* rows,
+                                         const int* slot, const T* ws,
+                                         T* s_out, T* __restrict__ out) const {
+    using V = typename Vec16<T>::type;
+    constexpr int VEC = 16 / sizeof(T);
+    const int rowlen = NC * nf;
+    const long long q0 = tile * Q;
+    const long long left = n - q0;
+    const int nq = left < Q ? static_cast<int>(left) : Q;
+    const int total = nq * nf;
+    for (int e = t; e < total; e += kRowsSlots) {
+      const int q = e / nf;
+      const int f = e - q * nf;
+      T acc = T(0);
+      bool bad = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int u = slot[q * R + r];
+        if (u < 0) {
+          bad = true;
+        } else {
+          const T* rr = rows + u * rowlen + f;
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            acc += ws[(q * R + r) * NC + c] * rr[c * nf];
+        }
+      }
+      s_out[e] = bad ? quiet_nan<T>() : acc;
+    }
+    __syncthreads();
+    T* o = out + q0 * nf;
+    const int nvec = total / VEC;
+    for (int k = t; k < nvec; k += kRowsSlots)
+      reinterpret_cast<V*>(o)[k] = *reinterpret_cast<const V*>(s_out + k * VEC);
+    for (int k = nvec * VEC + t; k < total; k += kRowsSlots) o[k] = s_out[k];
+  }
+};
+
+template <typename T, int R, int NC>
+struct RowsWeightGrad {
   using V = typename Vec16<T>::type;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int Q = rows_tile_queries<T, R, NC>();
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int Q = kRowsSlots / R;   // queries a tile
+  // 16-byte pieces of the tile's g (Q nf values, one run) a thread fetches,
+  // at the widest row the pipeline takes
+  static constexpr int GV =
+      (Q * (kRowsMaxRowBytes / (NC * static_cast<int>(sizeof(T)))) / VEC +
+       kRowsSlots - 1) / kRowsSlots;
+  V gv[GV];
+  T gt;       // an element of a ragged last tile's tail
+  int total;  // values of g in the tile ahead
+
+  __host__ __device__ static constexpr int stage_elems(int nf) {
+    return Q * nf;
+  }
+  __host__ __device__ static constexpr int out_elems(int) {
+    return kRowsSlots * NC;
+  }
+
+  // the tile's run of g, pieces t, t + kRowsSlots, ... as coalesced 16-byte
+  // loads
+  __device__ __forceinline__ void fetch(const T* __restrict__ g,
+                                        long long tile, long long, bool,
+                                        long long n, int nf, int t) {
+    const long long q0 = tile * Q;
+    const long long left = n - q0;
+    total = (left < Q ? static_cast<int>(left) : Q) * nf;
+    const T* gp = g + q0 * nf;
+    const int nvec = total / VEC;
+#pragma unroll
+    for (int i = 0; i < GV; ++i) {
+      const int k = t + i * kRowsSlots;
+      if (k < nvec) gv[i] = __ldg(reinterpret_cast<const V*>(gp) + k);
+    }
+    const int k = nvec * VEC + t;
+    if (k < total) gt = __ldg(gp + k);
+  }
+
+  __device__ __forceinline__ void store(T* sx, int t, bool) const {
+    const int nvec = total / VEC;
+#pragma unroll
+    for (int i = 0; i < GV; ++i) {
+      const int k = t + i * kRowsSlots;
+      if (k < nvec) reinterpret_cast<V*>(sx)[k] = gv[i];
+    }
+    const int k = nvec * VEC + t;
+    if (k < total) sx[k] = gt;
+  }
+
+  // one thread per (slot, corner): dw[q, r, c] = sum_f g[q, f] row[c nf +
+  // f], fields in the order f = 0..nf-1; the tile's dw, Q R NC values of
+  // one run, through shared memory in 16-byte stores
+  __device__ __forceinline__ void finish(long long tile, long long n, int nf,
+                                         int t, const T* rows,
+                                         const int* slot, const T* gs,
+                                         T* s_out, T* __restrict__ out) const {
+    const int rowlen = NC * nf;
+    const long long q0 = tile * Q;
+    const long long left = n - q0;
+    const int nq = left < Q ? static_cast<int>(left) : Q;
+    const int total = nq * R * NC;
+    for (int e = t; e < total; e += kRowsSlots) {
+      const int u = e / NC;   // the slot, query u / R, row u % R
+      const int c = e - u * NC;
+      const int q = u / R;
+      bool bad = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) bad |= slot[q * R + r] < 0;
+      T acc = T(0);
+      if (!bad) {
+        const T* rr = rows + slot[u] * rowlen + c * nf;
+        const T* gq = gs + q * nf;
+        for (int f = 0; f < nf; ++f) acc += gq[f] * rr[f];
+      }
+      s_out[e] = bad ? quiet_nan<T>() : acc;
+    }
+    __syncthreads();
+    using V = typename Vec16<T>::type;
+    T* o = out + q0 * R * NC;
+    const int nvec = total / VEC;
+    for (int k = t; k < nvec; k += kRowsSlots)
+      reinterpret_cast<V*>(o)[k] = *reinterpret_cast<const V*>(s_out + k * VEC);
+    for (int k = nvec * VEC + t; k < total; k += kRowsSlots) o[k] = s_out[k];
+  }
+};
+
+// dynamic shared memory of the pipeline: the two stages' rows and
+// operands, then the output stage
+template <typename T, int R, int NC, class Epi>
+size_t rows_tiled_smem(int nf) {
+  return (static_cast<size_t>(kRowsStages) *
+              (static_cast<size_t>(kRowsSlots) * NC * nf +
+               Epi::stage_elems(nf)) +
+          Epi::out_elems(nf)) * sizeof(T);
+}
+
+// A persistent grid; slot t of tile k is (query k Q + t / R, row t % R),
+// element k kRowsSlots + t of idx.  DEDUP: lanes of a warp with one row
+// share a copy; else every slot copies its row
+template <typename T, int R, int NC, bool DEDUP, class Epi>
+__device__ __forceinline__ void rows_pipeline(const T* __restrict__ table,
+                                              const int32_t* __restrict__ idx,
+                                              const T* __restrict__ x,
+                                              T* __restrict__ out,
+                                              int* __restrict__ err,
+                                              long long n, long long ns,
+                                              int nf) {
+  constexpr int Q = kRowsSlots / R;
   static_assert(Q * R == kRowsSlots, "R divides the tile");
 
   __shared__ uint64_t s_bar[kRowsStages];
@@ -494,9 +797,10 @@ quad_gather_rows_tiled(const T* __restrict__ table,
 
   const int rowlen = NC * nf;
   const unsigned rowbytes = static_cast<unsigned>(rowlen * sizeof(T));
+  const int xlen = Epi::stage_elems(nf);
   T* s_rows = reinterpret_cast<T*>(s_dyn);               // [stage][slot][row]
-  T* s_w = s_rows + kRowsStages * kRowsSlots * rowlen;    // [stage][slot][c]
-  T* s_out = s_w + kRowsStages * kRowsSlots * NC;         // [query][f]
+  T* s_x = s_rows + kRowsStages * kRowsSlots * rowlen;    // [stage][operand]
+  T* s_out = s_x + kRowsStages * xlen;                    // the output stage
 
   const int t = threadIdx.x;
   if (t == 0) {
@@ -507,33 +811,26 @@ quad_gather_rows_tiled(const T* __restrict__ table,
 
   const long long ntiles = (n + Q - 1) / Q;
 
-  // this thread's slot of the tile ahead, read from global memory one
-  // tile before it is issued; slot t of tile k is (query k Q + t / R, row
-  // t % R), element k * kRowsSlots + t of idx
+  // this thread's slot of the tile ahead and the epilogue's operand, read
+  // from global memory one tile before it is issued
   bool live = false;
   int row = 0;
-  T wv[NC];
+  Epi epi;
   auto fetch = [&](long long tile) {
     const long long k = tile * kRowsSlots + t;
     live = k < n * R;
-    if (live) {
-      row = __ldg(idx + k);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) wv[c] = __ldg(w + k * NC + c);
-    }
+    if (live) row = __ldg(idx + k);
+    epi.fetch(x, tile, k, live, n, nf, t);
   };
 
-  // stage s takes the fetched tile: weights to shared memory, the slot's
-  // row copied to the slot's own place in the stage unless another slot of
-  // the warp with that row copies it (DEDUP), the stage's barrier armed
-  // with the bytes of the copies
+  // stage s takes the fetched tile: the operand to shared memory, the
+  // slot's row copied to the slot's own place in the stage unless another
+  // slot of the warp with that row copies it (DEDUP), the stage's barrier
+  // armed with the bytes of the copies
   auto issue = [&](int s) {
     const bool valid = live && row >= 0 && row < ns;
     if (live && !valid) atomicExch(err, 1);
-    if (live) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) s_w[(s * kRowsSlots + t) * NC + c] = wv[c];
-    }
+    epi.store(s_x + s * xlen, t, live);
     bool copy = valid;
     int slot = valid ? t : -1;   // where the slot's row lands
     if constexpr (DEDUP) {
@@ -556,44 +853,7 @@ quad_gather_rows_tiled(const T* __restrict__ table,
     if (t == 0) mbar_arrive_expect_tx(&s_bar[s], copies * rowbytes);
   };
 
-  // one thread per (query, field) of the tile in stage s, rows r-major
-  // then corners c; outputs through shared memory in 16-byte stores
-  auto combine = [&](long long tile, int s) {
-    const long long q0 = tile * Q;
-    const long long left = n - q0;
-    const int nq = left < Q ? static_cast<int>(left) : Q;
-    const int total = nq * nf;
-    const T* rows = s_rows + static_cast<size_t>(s) * kRowsSlots * rowlen;
-    const T* ws = s_w + s * kRowsSlots * NC;
-    for (int e = t; e < total; e += kRowsSlots) {
-      const int q = e / nf;
-      const int f = e - q * nf;
-      T acc = T(0);
-      bool bad = false;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int u = s_slot[s][q * R + r];
-        if (u < 0) {
-          bad = true;
-        } else {
-          const T* rr = rows + u * rowlen + f;
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-            acc += ws[(q * R + r) * NC + c] * rr[c * nf];
-        }
-      }
-      s_out[e] = bad ? quiet_nan<T>() : acc;
-    }
-    __syncthreads();
-    T* o = out + q0 * nf;
-    const int nvec = total / VEC;
-    for (int k = t; k < nvec; k += kRowsSlots)
-      reinterpret_cast<V*>(o)[k] = *reinterpret_cast<const V*>(s_out + k * VEC);
-    for (int k = nvec * VEC + t; k < total; k += kRowsSlots) o[k] = s_out[k];
-    __syncthreads();   // stage s and the output stage are free again
-  };
-
-  // kRowsStages - 1 tiles in flight ahead of the one being combined
+  // kRowsStages - 1 tiles in flight ahead of the one being finished
   const long long step = gridDim.x;
   long long tile = blockIdx.x;
   if (tile >= ntiles) return;
@@ -613,8 +873,33 @@ quad_gather_rows_tiled(const T* __restrict__ table,
       if (ahead + step < ntiles) fetch(ahead + step);
     }
     mbar_wait(&s_bar[s], (it / kRowsStages) & 1);
-    combine(tile, s);
+    epi.finish(tile, n, nf, t,
+               s_rows + static_cast<size_t>(s) * kRowsSlots * rowlen,
+               s_slot[s], s_x + s * xlen, s_out, out);
+    __syncthreads();   // stage s and the output stage are free again
   }
+}
+
+template <typename T, int R, int NC, bool DEDUP>
+__global__ void __launch_bounds__(kRowsSlots)
+quad_gather_rows_tiled(const T* __restrict__ table,
+                       const int32_t* __restrict__ idx,
+                       const T* __restrict__ w, T* __restrict__ out,
+                       int* __restrict__ err, long long n, long long ns,
+                       int nf) {
+  rows_pipeline<T, R, NC, DEDUP, RowsCombine<T, R, NC>>(table, idx, w, out,
+                                                        err, n, ns, nf);
+}
+
+template <typename T, int R, int NC>
+__global__ void __launch_bounds__(kRowsSlots)
+quad_gather_rows_bwd_w_tiled(const T* __restrict__ table,
+                             const int32_t* __restrict__ idx,
+                             const T* __restrict__ g, T* __restrict__ dw,
+                             int* __restrict__ err, long long n, long long ns,
+                             int nf) {
+  rows_pipeline<T, R, NC, true, RowsWeightGrad<T, R, NC>>(table, idx, g, dw,
+                                                          err, n, ns, nf);
 }
 
 template <typename T, int R_, int NC_>
@@ -630,15 +915,14 @@ void launch_rows_simple(const T* table, const int32_t* idx, const T* w,
 
 constexpr int kRowsMaxDevices = 64;
 
-// the grid of the persistent kernel: blocks resident on the whole card at
-// this row size, worked out on the first launch of each instantiation,
-// device and row size (the set-up calls cost more than a small launch);
-// 0 and the CUDA error on failure
-template <typename T, int R, int NC, bool DEDUP>
-long long rows_tiled_resident(int nf, int* rc) {
+// the grid of a persistent kernel: blocks resident on the whole card at
+// this row size, worked out on the first launch of each kernel, device and
+// row size (the set-up calls cost more than a small launch); 0 and the CUDA
+// error on failure
+template <typename T, int R, int NC, bool DEDUP, class Epi, typename Kernel>
+long long rows_tiled_resident(Kernel kernel, int nf, int* rc) {
   constexpr int kSizes = kRowsMaxRowBytes / 16 + 1;
   static long long resident[kRowsMaxDevices][kSizes];   // 0: not yet known
-  auto kernel = quad_gather_rows_tiled<T, R, NC, DEDUP>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || dev >= kRowsMaxDevices) {
@@ -649,14 +933,14 @@ long long rows_tiled_resident(int nf, int* rc) {
   long long& cached = resident[dev][size];
   if (cached > 0) return cached;
   // the attribute admits the largest row, so every row size may launch
-  const size_t smem_max = rows_tiled_smem<T, R, NC>(
+  const size_t smem_max = rows_tiled_smem<T, R, NC, Epi>(
       static_cast<int>(kRowsMaxRowBytes / (NC * sizeof(T))));
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem_max));
   int per_sm = 0, sms = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kRowsSlots, rows_tiled_smem<T, R, NC>(nf));
+        &per_sm, kernel, kRowsSlots, rows_tiled_smem<T, R, NC, Epi>(nf));
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
@@ -668,32 +952,66 @@ long long rows_tiled_resident(int nf, int* rc) {
   return cached;
 }
 
-template <typename T, int R, int NC, bool DEDUP>
-int launch_rows_tiled(const T* table, const int32_t* idx, const T* w, T* out,
-                      int* err, long long n, long long ns, int nf,
-                      cudaStream_t stream) {
-  auto kernel = quad_gather_rows_tiled<T, R, NC, DEDUP>;
-  const size_t smem = rows_tiled_smem<T, R, NC>(nf);
+template <typename T, int R, int NC, bool DEDUP, class Epi, typename Kernel>
+int launch_rows_tiled(Kernel kernel, const T* table, const int32_t* idx,
+                      const T* x, T* out, int* err, long long n, long long ns,
+                      int nf, cudaStream_t stream) {
+  const size_t smem = rows_tiled_smem<T, R, NC, Epi>(nf);
   int rc = 0;
-  const long long resident = rows_tiled_resident<T, R, NC, DEDUP>(nf, &rc);
+  const long long resident =
+      rows_tiled_resident<T, R, NC, DEDUP, Epi>(kernel, nf, &rc);
   if (resident == 0) return rc;
-  constexpr int Q = rows_tile_queries<T, R, NC>();
+  constexpr int Q = kRowsSlots / R;
   const long long ntiles = (n + Q - 1) / Q;
   const long long blocks = ntiles < resident ? ntiles : resident;
   kernel<<<static_cast<unsigned int>(blocks), kRowsSlots, smem, stream>>>(
-      table, idx, w, out, err, n, ns, nf);
+      table, idx, x, out, err, n, ns, nf);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the forward with or without DEDUP, or (bwd) the weights' backward
 template <typename T, int R, int NC>
-int launch_rows_tiled_as(const T* table, const int32_t* idx, const T* w,
+int launch_rows_tiled_as(const T* table, const int32_t* idx, const T* x,
                          T* out, int* err, long long n, long long ns, int nf,
-                         int dedup, cudaStream_t stream) {
+                         int dedup, bool bwd, cudaStream_t stream) {
+  if (bwd)
+    return launch_rows_tiled<T, R, NC, true, RowsWeightGrad<T, R, NC>>(
+        quad_gather_rows_bwd_w_tiled<T, R, NC>, table, idx, x, out, err, n,
+        ns, nf, stream);
   if (dedup)
-    return launch_rows_tiled<T, R, NC, true>(table, idx, w, out, err, n, ns,
-                                             nf, stream);
-  return launch_rows_tiled<T, R, NC, false>(table, idx, w, out, err, n, ns,
-                                            nf, stream);
+    return launch_rows_tiled<T, R, NC, true, RowsCombine<T, R, NC>>(
+        quad_gather_rows_tiled<T, R, NC, true>, table, idx, x, out, err, n,
+        ns, nf, stream);
+  return launch_rows_tiled<T, R, NC, false, RowsCombine<T, R, NC>>(
+      quad_gather_rows_tiled<T, R, NC, false>, table, idx, x, out, err, n, ns,
+      nf, stream);
+}
+
+// the bulk-copy kernels' shapes and alignment: rows of whole 16-byte pieces
+// of at most kRowsMaxRowBytes, table and the operands read or written in
+// 16-byte pieces on 16 bytes (out always; x for the backward)
+template <typename T>
+int launch_rows_tiled_shape(const T* table, const int32_t* idx, const T* x,
+                            T* out, int* err, long long n, long long ns,
+                            int r, int nc, int nf, int dedup, bool bwd,
+                            cudaStream_t stream) {
+  const long long rowbytes = static_cast<long long>(nc) * nf * sizeof(T);
+  if (rowbytes % 16 != 0 || rowbytes > kRowsMaxRowBytes ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      (bwd && reinterpret_cast<uintptr_t>(x) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (r == 4 && nc == 2)
+    return launch_rows_tiled_as<T, 4, 2>(table, idx, x, out, err, n, ns, nf,
+                                         dedup, bwd, stream);
+  if (r == 8 && nc == 2)
+    return launch_rows_tiled_as<T, 8, 2>(table, idx, x, out, err, n, ns, nf,
+                                         dedup, bwd, stream);
+  if (r == 1 && nc == 1)
+    return launch_rows_tiled_as<T, 1, 1>(table, idx, x, out, err, n, ns, nf,
+                                         dedup, bwd, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -701,24 +1019,9 @@ int launch_rows(const T* table, const int32_t* idx, const T* w, T* out,
                 int* err, long long n, long long ns, int r, int nc, int nf,
                 int variant, int dedup, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (variant == 0) {
-    const long long rowbytes = static_cast<long long>(nc) * nf * sizeof(T);
-    if (rowbytes % 16 != 0 || rowbytes > kRowsMaxRowBytes ||
-        reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(out) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (n == 0) return static_cast<int>(cudaGetLastError());
-    if (r == 4 && nc == 2)
-      return launch_rows_tiled_as<T, 4, 2>(table, idx, w, out, err, n, ns, nf,
-                                           dedup, stream);
-    if (r == 8 && nc == 2)
-      return launch_rows_tiled_as<T, 8, 2>(table, idx, w, out, err, n, ns, nf,
-                                           dedup, stream);
-    if (r == 1 && nc == 1)
-      return launch_rows_tiled_as<T, 1, 1>(table, idx, w, out, err, n, ns, nf,
-                                           dedup, stream);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (variant == 0)
+    return launch_rows_tiled_shape<T>(table, idx, w, out, err, n, ns, r, nc,
+                                      nf, dedup, false, stream);
   if (n > 0) {
     if (r == 4 && nc == 2) {
       launch_rows_simple<T, 4, 2>(table, idx, w, out, err, n, ns, r, nc, nf,
@@ -743,26 +1046,33 @@ int launch_rows(const T* table, const int32_t* idx, const T* w, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the forward tiled kernel, or (bwd) the weights' backward on its pipeline
 template <typename T, int NC, int NF>
-void launch_tiled(const T* table, const int32_t* idx, const T* w, T* out,
-                  int* err, long long n, int ns, cudaStream_t stream) {
-  const long long blocks = (n + kTile - 1) / kTile;
-  quad_gather_tiled<T, NC, NF>
-      <<<static_cast<unsigned int>(blocks), kTile, 0, stream>>>(
-          table, idx, w, out, err, n, ns);
+void launch_tiled(const T* table, const int32_t* idx, const T* x, T* out,
+                  int* err, long long n, long long ns, bool bwd,
+                  cudaStream_t stream) {
+  const unsigned int blocks =
+      static_cast<unsigned int>((n + kTile - 1) / kTile);
+  if (bwd)
+    quad_gather_bwd_w_tiled<T, NC, NF><<<blocks, kTile, 0, stream>>>(
+        table, idx, x, out, err, n, ns);
+  else
+    quad_gather_tiled<T, NC, NF><<<blocks, kTile, 0, stream>>>(
+        table, idx, x, out, err, n, ns);
 }
 
-// the shapes the tiled kernel is built for: FFJET (4, 9), the POLSYNCHPL
+// the shapes the tiled kernels are built for: FFJET (4, 9), the POLSYNCHPL
 // cutoff table (2, 6) and its per-sample-p form (4, 6), HARM (4, 10),
 // KORAL (4, 11), SPHACC (2, 2), NUMDISK (4, 1)
 template <typename T>
-bool launch_tiled_shape(const T* table, const int32_t* idx, const T* w,
-                        T* out, int* err, long long n, int ns, int nc, int nf,
-                        cudaStream_t stream) {
+bool launch_tiled_shape(const T* table, const int32_t* idx, const T* x,
+                        T* out, int* err, long long n, long long ns, int nc,
+                        int nf, bool bwd, cudaStream_t stream) {
 #define QG_TILED(NC_, NF_)                                                  \
   if (nc == NC_ && nf == NF_) {                                             \
     if (n > 0)                                                              \
-      launch_tiled<T, NC_, NF_>(table, idx, w, out, err, n, ns, stream);    \
+      launch_tiled<T, NC_, NF_>(table, idx, x, out, err, n, ns, bwd,       \
+                                stream);                                    \
     return true;                                                            \
   }
   QG_TILED(4, 9)
@@ -781,7 +1091,7 @@ int launch(const T* table, const int32_t* idx, const T* w, T* out, int* err,
            long long n, int ns, int nc, int nf, int variant, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (variant == 0) {
-    if (!launch_tiled_shape<T>(table, idx, w, out, err, n, ns, nc, nf,
+    if (!launch_tiled_shape<T>(table, idx, w, out, err, n, ns, nc, nf, false,
                                stream))
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
@@ -814,18 +1124,38 @@ int launch(const T* table, const int32_t* idx, const T* w, T* out, int* err,
 // (quad_gather_bwd_w), R >= 1 quad_gather_rows's (quad_gather_rows_bwd_w).
 // The table takes no gradient (no path differentiates loaded data), so
 // there is no scatter and no atomic: every dw element is written once, by
-// one thread, which sums over the fields in order, so a run repeats
-// bitwise.  A query's R * nc threads are neighbours: together they read
-// its rows as the forward kernels do (thread (r, c) the nf consecutive
-// values of corner c of row r), share the query's g through L1, and store
-// the query's dw as one contiguous run.  Bound: the bytes, as the
-// forward's (index, g and dw once, each distinct row once); the shape is a
-// run-time argument, so every (R, nc, nf) the forward takes is taken.  A
-// row outside [0, ns) sets *err and writes NaN into every dw of its query.
+// one thread, which sums over the fields in the order f = 0..nf-1, so a run
+// repeats bitwise, and every kernel below sums in that one order.  Bound:
+// the bytes, as the forward's (index, g and dw once, each distinct row
+// once).  A row outside [0, ns) sets *err and writes NaN into every dw of
+// its query.  Kernels:
+//  * quad_gather_bwd_w_tiled<T, NC, NF> (R = 1, the tiled forward's shapes,
+//    16-byte aligned operands): the forward's tile pipeline with the
+//    weight-gradient epilogue.  A block takes 128 queries; each thread reads
+//    its index and its query's g once, in 16-byte loads: its own row of g
+//    where that is whole 16-byte pieces, else the tile's g (one run of
+//    128 NF values) in coalesced loads, passed through shared memory while
+//    the rows' 16-byte pieces are in flight; each thread forms its NC dot
+//    products with NF unrolled; dw leaves through shared memory in 16-byte
+//    stores.
+//  * quad_gather_rows_bwd_w_tiled<T, R, NC> ((R, NC) and rows as the tiled
+//    rows forward takes them, table and g 16-byte aligned): the forward's
+//    bulk-copy pipeline (persistent grid, indices a tile ahead, rows by
+//    cp.async.bulk into a two-stage mbarrier ring, warp dedup on) with the
+//    weight-gradient epilogue: the tile's Q nf values of g (one run) are
+//    fetched a tile ahead in coalesced 16-byte loads and staged in the
+//    ring beside the rows; one thread per (slot, corner) forms its dot from
+//    shared memory; the tile's dw, Q R NC values of one run, leaves in
+//    16-byte stores.
+//  * quad_gather_bwd_w_generic / quad_gather_rows_bwd_w_simple (the first
+//    design; any run-time (R, nc, nf) and alignment): a thread a weight,
+//    its query's R * nc threads neighbours; the thread's index is divided
+//    in 32 bits where the weight count fits.
 
 constexpr int kBwdThreads = 256;   // threads a block
 
-template <typename T>
+// I: the integer type of the thread index, 32 bits where the count fits
+template <typename T, typename I>
 __device__ __forceinline__ void bwd_w_element(const T* __restrict__ table,
                                               const int32_t* __restrict__ idx,
                                               const T* __restrict__ g,
@@ -833,15 +1163,14 @@ __device__ __forceinline__ void bwd_w_element(const T* __restrict__ table,
                                               int* __restrict__ err,
                                               long long n, long long ns,
                                               int r, int nc, int nf) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
-  const long long per = static_cast<long long>(r) * nc;
-  if (t >= n * per) return;
-  const long long q = t / per;
+  const I t = static_cast<I>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  const I per = static_cast<I>(r) * nc;
+  if (t >= static_cast<I>(n) * per) return;
+  const I q = t / per;
   const int k = static_cast<int>(t - q * per);
   const int rr = k / nc;
   const int c = k - rr * nc;
-  const int32_t* iq = idx + q * r;
+  const int32_t* iq = idx + static_cast<long long>(q) * r;
   bool bad = false;
   for (int j = 0; j < r; ++j) {
     const long long row = __ldg(iq + j);
@@ -854,47 +1183,75 @@ __device__ __forceinline__ void bwd_w_element(const T* __restrict__ table,
   }
   const T* trow = table + static_cast<long long>(__ldg(iq + rr)) * nc * nf
                   + static_cast<long long>(c) * nf;
-  const T* gq = g + q * nf;
+  const T* gq = g + static_cast<long long>(q) * nf;
   T acc = T(0);
   for (int f = 0; f < nf; ++f) acc += __ldg(gq + f) * __ldg(trow + f);
   dw[t] = acc;
 }
 
-template <typename T>
+template <typename T, typename I>
 __global__ void __launch_bounds__(kBwdThreads)
-quad_gather_bwd_w(const T* __restrict__ table, const int32_t* __restrict__ idx,
-                  const T* __restrict__ g, T* __restrict__ dw,
-                  int* __restrict__ err, long long n, long long ns, int nc,
-                  int nf) {
-  bwd_w_element(table, idx, g, dw, err, n, ns, 1, nc, nf);
+quad_gather_bwd_w_generic(const T* __restrict__ table,
+                          const int32_t* __restrict__ idx,
+                          const T* __restrict__ g, T* __restrict__ dw,
+                          int* __restrict__ err, long long n, long long ns,
+                          int nc, int nf) {
+  bwd_w_element<T, I>(table, idx, g, dw, err, n, ns, 1, nc, nf);
 }
 
-template <typename T>
+template <typename T, typename I>
 __global__ void __launch_bounds__(kBwdThreads)
-quad_gather_rows_bwd_w(const T* __restrict__ table,
-                       const int32_t* __restrict__ idx,
-                       const T* __restrict__ g, T* __restrict__ dw,
-                       int* __restrict__ err, long long n, long long ns, int r,
-                       int nc, int nf) {
-  bwd_w_element(table, idx, g, dw, err, n, ns, r, nc, nf);
+quad_gather_rows_bwd_w_simple(const T* __restrict__ table,
+                              const int32_t* __restrict__ idx,
+                              const T* __restrict__ g, T* __restrict__ dw,
+                              int* __restrict__ err, long long n,
+                              long long ns, int r, int nc, int nf) {
+  bwd_w_element<T, I>(table, idx, g, dw, err, n, ns, r, nc, nf);
 }
 
+template <typename T, typename I>
+void launch_bwd_w_element(const T* table, const int32_t* idx, const T* g,
+                          T* dw, int* err, long long n, long long ns, int r,
+                          int nc, int nf, bool rows, cudaStream_t stream) {
+  const long long total = n * r * nc;
+  const unsigned int blocks =
+      static_cast<unsigned int>((total + kBwdThreads - 1) / kBwdThreads);
+  if (rows)
+    quad_gather_rows_bwd_w_simple<T, I><<<blocks, kBwdThreads, 0, stream>>>(
+        table, idx, g, dw, err, n, ns, r, nc, nf);
+  else
+    quad_gather_bwd_w_generic<T, I><<<blocks, kBwdThreads, 0, stream>>>(
+        table, idx, g, dw, err, n, ns, nc, nf);
+}
+
+// variant 0: the tiled kernel (the shape must be one it is built for, the
+// operands 16-byte aligned); 1: generic (R = 1) or simple (rows)
 template <typename T>
 int launch_bwd_w(const T* table, const int32_t* idx, const T* g, T* dw,
                  int* err, long long n, long long ns, int r, int nc, int nf,
-                 bool rows, void* stream_) {
+                 bool rows, int variant, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (r < 1 || nc < 1 || nf < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) {
-    const long long total = n * r * nc;
-    const unsigned int blocks =
-        static_cast<unsigned int>((total + kBwdThreads - 1) / kBwdThreads);
+  if (variant == 0) {
     if (rows)
-      quad_gather_rows_bwd_w<T><<<blocks, kBwdThreads, 0, stream>>>(
-          table, idx, g, dw, err, n, ns, r, nc, nf);
+      return launch_rows_tiled_shape<T>(table, idx, g, dw, err, n, ns, r, nc,
+                                        nf, 1, true, stream);
+    if (reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(dw) % 16 != 0 ||
+        !launch_tiled_shape<T>(table, idx, g, dw, err, n, ns, nc, nf, true,
+                               stream))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (n > 0) {
+    // 32-bit indices where every thread's index fits
+    if (n * r * nc + kBwdThreads <= 0x7fffffffLL)
+      launch_bwd_w_element<T, unsigned>(table, idx, g, dw, err, n, ns, r, nc,
+                                        nf, rows, stream);
     else
-      quad_gather_bwd_w<T><<<blocks, kBwdThreads, 0, stream>>>(
-          table, idx, g, dw, err, n, ns, nc, nf);
+      launch_bwd_w_element<T, long long>(table, idx, g, dw, err, n, ns, r, nc,
+                                         nf, rows, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -904,35 +1261,35 @@ int launch_bwd_w(const T* table, const int32_t* idx, const T* g, T* dw,
 extern "C" int quad_gather_bwd_w_f32(const float* table, const int32_t* idx,
                                      const float* g, float* dw, int* err,
                                      long long n, long long ns, int nc,
-                                     int nf, void* stream) {
+                                     int nf, int variant, void* stream) {
   return launch_bwd_w<float>(table, idx, g, dw, err, n, ns, 1, nc, nf, false,
-                             stream);
+                             variant, stream);
 }
 
 extern "C" int quad_gather_bwd_w_f64(const double* table, const int32_t* idx,
                                      const double* g, double* dw, int* err,
                                      long long n, long long ns, int nc,
-                                     int nf, void* stream) {
+                                     int nf, int variant, void* stream) {
   return launch_bwd_w<double>(table, idx, g, dw, err, n, ns, 1, nc, nf, false,
-                              stream);
+                              variant, stream);
 }
 
 extern "C" int quad_gather_rows_bwd_w_f32(const float* table,
                                           const int32_t* idx, const float* g,
                                           float* dw, int* err, long long n,
                                           long long ns, int r, int nc, int nf,
-                                          void* stream) {
+                                          int variant, void* stream) {
   return launch_bwd_w<float>(table, idx, g, dw, err, n, ns, r, nc, nf, true,
-                             stream);
+                             variant, stream);
 }
 
 extern "C" int quad_gather_rows_bwd_w_f64(const double* table,
                                           const int32_t* idx, const double* g,
                                           double* dw, int* err, long long n,
                                           long long ns, int r, int nc, int nf,
-                                          void* stream) {
+                                          int variant, void* stream) {
   return launch_bwd_w<double>(table, idx, g, dw, err, n, ns, r, nc, nf, true,
-                              stream);
+                              variant, stream);
 }
 
 extern "C" int quad_gather_f32(const float* table, const int32_t* idx,

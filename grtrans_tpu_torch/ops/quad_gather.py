@@ -43,15 +43,22 @@ is a hand-written kernel of its own on the card and its plain twin
 index takes no gradient, and a table that requires one raises
 NotImplementedError (every table is loaded data: no path of the renderer
 differentiates one, so the scatter-add that would need is not written).
+Each backward has two kernels: a tiled one on its forward's pipeline (the
+R = 1 tile pipeline for `TILED_SHAPES`, the bulk-copy ring with warp dedup
+for `ROWS_TILED_SHAPES`; table, g and dw on 16 bytes) and the first
+design (a thread a weight, any shape), "generic" for R = 1 and "simple"
+for rows.  `bwd_kernel` / `rows_bwd_kernel` pick; `generic=True` /
+`simple=True` force the first design so that the two can be timed against
+each other.
 
 The library is compiled with nvcc on first use into
 grtrans_tpu_torch/_build/, keyed by a hash of its source, and bound with
 ctypes.  `quad_gather.launches`, `quad_gather_rows.launches`,
 `quad_gather_bwd_w.launches` and `quad_gather_rows_bwd_w.launches` count
 kernel launches; `launches_by_dtype` of each wrapper splits them into the
-"f32" and "f64" instantiations, and `launches_by_kernel` of the forward
-wrappers by kernel.  The plain twins count their calls (`calls`), so that
-a run can show that no path on the card reached them.
+"f32" and "f64" instantiations, and `launches_by_kernel` by kernel.  The
+plain twins count their calls (`calls`), so that a run can show that no
+path on the card reached them.
 """
 
 import collections
@@ -218,28 +225,38 @@ quad_gather.launches_by_kernel = collections.Counter()
 quad_gather.launches_by_dtype = collections.Counter()
 
 
-def quad_gather_bwd_w(table, idx, g, nc, nf):
+def quad_gather_bwd_w(table, idx, g, nc, nf, generic=False):
     """The gradient of quad_gather with respect to its weights, given the
-    output's gradient g (N, nf): dw (N, nc).  The kernel on the card, the
-    plain version on the CPU."""
+    output's gradient g (N, nf): dw (N, nc).  The kernel on the card (the
+    one `bwd_kernel` picks; `generic` forces the first design, for timing),
+    the plain version on the CPU."""
     _check_operands(table, idx, g, nc, nf, rows=False, grad=True)
     if table.device.type == "cpu":
         return quad_gather_bwd_w_ref(table, idx, g, nc, nf)
     n = idx.shape[0]
     dw = torch.empty((n, nc), dtype=table.dtype, device=table.device)
-    _launch_bwd("quad_gather_bwd_w", table, idx, g, dw, (n, table.shape[0],
-                                                         nc, nf))
+    kernel = bwd_kernel(nc, nf, _aligned(table, g, dw), generic)
+    _launch_bwd("quad_gather_bwd_w", table, idx, g, dw,
+                (n, table.shape[0], nc, nf, _KERNELS.index(kernel)))
     quad_gather_bwd_w.launches += 1
+    quad_gather_bwd_w.launches_by_kernel[kernel] += 1
     quad_gather_bwd_w.launches_by_dtype[dtype_name(table)] += 1
     return dw
 
 
 quad_gather_bwd_w.launches = 0
+quad_gather_bwd_w.launches_by_kernel = collections.Counter()
 quad_gather_bwd_w.launches_by_dtype = collections.Counter()
 
 TILED_SHAPES = ((4, 9), (2, 6), (4, 6), (4, 10), (4, 11), (2, 2), (4, 1))
 WIDE_MIN_NF = 32
 _KERNELS = ("tiled", "generic", "wide")
+
+
+def _aligned(*tensors):
+    """Whether every tensor starts on 16 bytes (the tiled kernels move
+    16-byte pieces)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def gather_kernel(nc, nf, aligned, generic=False):
@@ -252,6 +269,16 @@ def gather_kernel(nc, nf, aligned, generic=False):
     if nf >= WIDE_MIN_NF and nc <= 32:
         return "wide"
     return "generic"
+
+
+def bwd_kernel(nc, nf, aligned, generic=False):
+    """The quad_gather_bwd_w kernel for a (nc, nf) table: "tiled" (the
+    forward's tile pipeline) or "generic" (the first design, any shape).
+    `aligned`: table, g and dw start on 16 bytes.  No gradient path
+    launches the wide-row shapes, so there is no wide backward."""
+    if generic or (nc, nf) not in TILED_SHAPES or not aligned:
+        return "generic"
+    return "tiled"
 
 
 def quad_gather_rows_ref(table, idx, w, nc, nf):
@@ -303,28 +330,35 @@ def quad_gather_rows(table, idx, w, nc, nf, simple=False, dedup=True):
     return _gather_rows(table, idx, w, nc, nf, simple, dedup)
 
 
-def quad_gather_rows_bwd_w(table, idx, g, nc, nf):
+def quad_gather_rows_bwd_w(table, idx, g, nc, nf, simple=False):
     """The gradient of quad_gather_rows with respect to its weights, given
-    the output's gradient g (N, nf): dw (N, R, nc).  The kernel on the
-    card, the plain version on the CPU."""
+    the output's gradient g (N, nf): dw (N, R, nc).  The kernel on the card
+    (the one `rows_bwd_kernel` picks; `simple` forces the first design, for
+    timing), the plain version on the CPU."""
     _check_operands(table, idx, g, nc, nf, rows=True, grad=True)
     if table.device.type == "cpu":
         return quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf)
     n, r = idx.shape
     dw = torch.empty((n, r, nc), dtype=table.dtype, device=table.device)
+    kernel = rows_bwd_kernel(r, nc, nf, table.element_size(),
+                             _aligned(table, g), simple)
     _launch_bwd("quad_gather_rows_bwd_w", table, idx, g, dw,
-                (n, table.shape[0], r, nc, nf))
+                (n, table.shape[0], r, nc, nf,
+                 _ROWS_KERNELS.index(kernel)))
     quad_gather_rows_bwd_w.launches += 1
+    quad_gather_rows_bwd_w.launches_by_kernel[kernel] += 1
     quad_gather_rows_bwd_w.launches_by_dtype[dtype_name(table)] += 1
     return dw
 
 
 quad_gather_rows_bwd_w.launches = 0
+quad_gather_rows_bwd_w.launches_by_kernel = collections.Counter()
 quad_gather_rows_bwd_w.launches_by_dtype = collections.Counter()
 
 
 def _launch_bwd(name, table, idx, g, dw, sizes):
-    """Launch the backward kernel `name` on the current stream."""
+    """Launch the backward kernel `name` on the current stream; `sizes`
+    are the C function's size arguments and the kernel variant."""
     lib = load_library()
     fn = getattr(lib, name + ("_f64" if table.dtype == torch.float64
                               else "_f32"))
@@ -386,6 +420,13 @@ def rows_kernel(r, nc, nf, itemsize, table_aligned, simple=False):
     return "tiled"
 
 
+# The quad_gather_rows_bwd_w kernel: the forward's rule, "tiled" (the
+# bulk-copy pipeline with the weights' epilogue) or "simple" (the first
+# design); `table_aligned` then says that table and g start on 16 bytes
+# (the wrapper's dw always does)
+rows_bwd_kernel = rows_kernel
+
+
 def error_flag(device):
     """The int32 device flag the kernel sets on an out-of-range index."""
     device = torch.device(device)
@@ -404,8 +445,7 @@ def _launch(table, idx, w, nc, nf, generic):
     out = torch.empty((n, nf), dtype=table.dtype, device=table.device)
     err = error_flag(table.device)
     # the tiled kernel moves 16-byte pieces; the others take any alignment
-    aligned = all(t.data_ptr() % 16 == 0 for t in (table, w, out))
-    kernel = gather_kernel(nc, nf, aligned, generic)
+    kernel = gather_kernel(nc, nf, _aligned(table, w, out), generic)
     variant = _KERNELS.index(kernel)
     fn = (lib.quad_gather_f64 if table.dtype == torch.float64
           else lib.quad_gather_f32)
@@ -434,22 +474,24 @@ def _nvcc():
     return found
 
 
-def library_path():
-    """Path of the compiled kernel library for the current source."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+def library_path(source=SOURCE):
+    """Path of the compiled kernel library for the current source (or
+    another version of it, `source`)."""
+    digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"libquad_gather_{digest}.so"
 
 
-def build():
-    """Compile csrc/quad_gather.cu for sm_90a unless the library for this
+def build(source=SOURCE):
+    """Compile csrc/quad_gather.cu (or another version of it, `source`,
+    for scripts/kernel_ab.py) for sm_90a unless the library for this
     source exists.  Returns the library path; the compiler's output
     (ptxas register and spill report) is kept beside it as a .log."""
-    so = library_path()
+    so = library_path(source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     so.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -460,36 +502,31 @@ def build():
     return so
 
 
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C interface's argument types, by function (the _f32 and _f64 alike):
+# table, idx, x, out, err, then the sizes, the variant and the stream
+ARGTYPES = {
+    "quad_gather": [_P] * 5 + [_LL, _I, _I, _I, _I, _P],
+    "quad_gather_rows": [_P] * 5 + [_LL, _LL, _I, _I, _I, _I, _I, _P],
+    "quad_gather_bwd_w": [_P] * 5 + [_LL, _LL, _I, _I, _I, _P],
+    "quad_gather_rows_bwd_w": [_P] * 5 + [_LL, _LL, _I, _I, _I, _I, _P],
+}
+
+
+def bind(lib, names=tuple(ARGTYPES)):
+    """Give the library's functions `names` their ctypes signatures."""
+    for name in names:
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = ARGTYPES[name]
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library():
     """Build (if needed) and load the kernel library with its ctypes
     signatures."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr = ctypes.c_void_p
-        for name in ("quad_gather_f32", "quad_gather_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ptr]
-            fn.restype = ctypes.c_int
-        for name in ("quad_gather_rows_f32", "quad_gather_rows_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
-            fn.restype = ctypes.c_int
-        for name in ("quad_gather_bwd_w_f32", "quad_gather_bwd_w_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr]
-            fn.restype = ctypes.c_int
-        for name in ("quad_gather_rows_bwd_w_f32",
-                     "quad_gather_rows_bwd_w_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ptr]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib

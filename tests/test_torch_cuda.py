@@ -500,22 +500,53 @@ def test_pgriter_through_a_loaded_snapshot_on_the_card(dev):
     assert abs(np.log(fitted / 6e15)) < 0.05
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 31, 4099, 1_000_003])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("r,nc,nf", [(None, 4, 9), (None, 2, 6), (None, 4, 6),
-                                     (None, 4, 10), (None, 2, 101),
-                                     (None, 2, 2), (None, 4, 1), (4, 2, 10),
-                                     (8, 2, 10), (1, 1, 10), (8, 1, 6),
-                                     (3, 3, 5)])
-def test_backward_kernels_match_plain(dev, dtype, r, nc, nf, n):
-    """quad_gather_bwd_w (r None) and quad_gather_rows_bwd_w against their
-    plain twins at every shape of the forward kernels (FFJET, POLSYNCHPL
-    and its per-sample p, HARM, PHATDISK, SPHACC, NUMDISK; the snapshot,
-    slow light, HARMPI, KORAL's bins, a run-time shape), bitwise repeated
-    from run to run (no atomics)."""
-    rng = np.random.default_rng(1)
-    ns = 257
+# every (R, nc, nf) of the forward kernels (R None: quad_gather): FFJET,
+# POLSYNCHPL and its per-sample p, HARM, PHATDISK, SPHACC, NUMDISK; the
+# snapshot, slow light, HARMPI, KORAL's bins, a run-time shape
+BWD_SHAPES = [(None, 4, 9), (None, 2, 6), (None, 4, 6), (None, 4, 10),
+              (None, 2, 101), (None, 2, 2), (None, 4, 1), (4, 2, 10),
+              (8, 2, 10), (1, 1, 10), (8, 1, 6), (3, 3, 5)]
+
+
+def _bwd(r):
+    """(kernel wrapper, plain twin, forcing keyword, first design's name)
+    of the weights' backward of quad_gather (r None) or quad_gather_rows."""
+    if r is None:
+        return (qg.quad_gather_bwd_w, qg.quad_gather_bwd_w_ref, "generic",
+                "generic")
+    return (qg.quad_gather_rows_bwd_w, qg.quad_gather_rows_bwd_w_ref,
+            "simple", "simple")
+
+
+def _picked(r, nc, nf, dtype, aligned=True):
+    itemsize = torch.finfo(dtype).bits // 8
+    if r is None:
+        return qg.bwd_kernel(nc, nf, aligned)
+    return qg.rows_bwd_kernel(r, nc, nf, itemsize, aligned)
+
+
+def _check_bwd(table, idx, g, nc, nf, kernel, forced=False):
+    """One launch of the backward against its twin (TOL of max|twin|,
+    widened for long rows), on the kernel `kernel` by launches_by_kernel,
+    bitwise repeated from run to run.  Returns (dw, twin)."""
+    r = idx.shape[1] if idx.dim() == 2 else None
+    kern, twin, force, _ = _bwd(r)
+    kw = {force: True} if forced else {}
+    before = kern.launches_by_kernel[kernel]
+    out = kern(table, idx, g, nc, nf, **kw)
+    ref = twin(table, idx, g, nc, nf)
+    torch.cuda.synchronize()
+    assert kern.launches_by_kernel[kernel] == before + 1
+    assert qg.error_flag(table.device).item() == 0
+    assert out.shape == idx.shape + (nc,) and out.dtype == table.dtype
+    assert (out - ref).abs().max().item() <= TOL[table.dtype] * \
+        ref.abs().max().item() * max(1.0, nf / 16)
+    assert torch.equal(out, kern(table, idx, g, nc, nf, **kw))
+    return out, ref
+
+
+def _bwd_operands(dev, dtype, r, nc, nf, n, ns=257, seed=1):
+    rng = np.random.default_rng(seed)
     shape = (n,) if r is None else (n, r)
     table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
                             device=dev)
@@ -523,19 +554,111 @@ def test_backward_kernels_match_plain(dev, dtype, r, nc, nf, n):
                           device=dev)
     g = torch.as_tensor(rng.standard_normal((n, nf)), dtype=dtype,
                         device=dev)
-    kern = qg.quad_gather_bwd_w if r is None else qg.quad_gather_rows_bwd_w
-    twin = qg.quad_gather_bwd_w_ref if r is None \
-        else qg.quad_gather_rows_bwd_w_ref
-    before = kern.launches
-    out = kern(table, idx, g, nc, nf)
-    ref = twin(table, idx, g, nc, nf)
-    torch.cuda.synchronize()
-    assert kern.launches == before + 1
-    assert qg.error_flag(dev).item() == 0
-    assert out.shape == shape + (nc,) and out.dtype == dtype
-    assert (out - ref).abs().max().item() <= TOL[dtype] * \
-        ref.abs().max().item() * max(1.0, nf / 16)
-    assert torch.equal(out, kern(table, idx, g, nc, nf))
+    return table, idx, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [False, True],
+                         ids=["picked", "first_design"])
+@pytest.mark.parametrize("n", [1, 31, 4099, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r,nc,nf", BWD_SHAPES)
+def test_backward_kernels_match_plain(dev, dtype, r, nc, nf, n, forced):
+    """quad_gather_bwd_w (r None) and quad_gather_rows_bwd_w against their
+    plain twins at every shape of the forward kernels, on the kernel the
+    wrapper picks (tiled where the shape and alignment admit it) and on
+    the first design forced (generic / simple), at query counts ragged
+    against the tiles, bitwise repeated from run to run (no atomics); the
+    tiled kernel equals the first design to rounding (both sum the fields
+    in one order)."""
+    table, idx, g = _bwd_operands(dev, dtype, r, nc, nf, n)
+    first = _bwd(r)[3]
+    kernel = first if forced else _picked(r, nc, nf, dtype)
+    out, ref = _check_bwd(table, idx, g, nc, nf, kernel, forced)
+    if not forced:
+        other, _ = _check_bwd(table, idx, g, nc, nf, first, forced=True)
+        assert (out - other).abs().max().item() <= TOL[dtype] * \
+            ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r,nc,nf", [(None, 4, 9), (None, 2, 6), (4, 2, 10)],
+                         ids=["ffjet", "polsynchpl", "snapshot"])
+def test_backward_takes_unaligned_operands(dev, dtype, r, nc, nf):
+    """A gradient (or, for R = 1, a table) that starts 8 or 4 bytes into
+    its storage cannot feed 16-byte loads: the wrapper sends it to the
+    first design, which agrees with the twin."""
+    table, idx, g = _bwd_operands(dev, dtype, r, nc, nf, 4099, seed=2)
+    flat = torch.empty(g.numel() + 1, dtype=dtype, device=dev)
+    flat[1:] = g.reshape(-1)
+    shifted = flat[1:].view(g.shape)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    first = _bwd(r)[3]
+    assert _picked(r, nc, nf, dtype, aligned=False) == first
+    _check_bwd(table, idx, shifted, nc, nf, first)
+    if r is None:
+        tflat = torch.empty(table.numel() + 1, dtype=dtype, device=dev)
+        tflat[1:] = table.reshape(-1)
+        _check_bwd(tflat[1:].view(table.shape), idx, g, nc, nf, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["one_row", "warp_shares"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r,nc,nf", [(None, 4, 9), (4, 2, 10), (8, 2, 10),
+                                     (1, 1, 10)])
+def test_backward_on_shared_rows(dev, dtype, r, nc, nf, stream):
+    """The tiled kernels where queries share rows: every query on one row
+    (the warp dedup's worst case: one copy a warp), and the queries of a
+    warp naming a few rows among them (neighbouring samples of a ray share
+    cells), ragged N; against the twin and the first design."""
+    n = 40_009
+    table, idx, g = _bwd_operands(dev, dtype, r, nc, nf, n, ns=1000, seed=3)
+    if stream == "one_row":
+        idx.fill_(617)
+    else:
+        q = torch.arange(idx.numel(), device=dev, dtype=torch.int64)
+        idx.view(-1).copy_((q // 11 * 7 + q % 3) % 1000)
+    out, ref = _check_bwd(table, idx, g, nc, nf, _picked(r, nc, nf, dtype))
+    first, _ = _check_bwd(table, idx, g, nc, nf, _bwd(r)[3], forced=True)
+    assert (out - first).abs().max().item() <= TOL[dtype] * \
+        ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [False, True],
+                         ids=["picked", "first_design"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r,nc,nf", [(None, 4, 9), (None, 2, 6), (4, 2, 10),
+                                     (8, 2, 10), (1, 1, 10)])
+def test_backward_flags_out_of_range_rows(dev, dtype, r, nc, nf, forced):
+    """A row outside [0, ns) in one query of a tile (and in the ragged last
+    tile): the flag set, NaN in every dw of those queries, the others equal
+    to the twin's."""
+    n = 1000
+    table, idx, g = _bwd_operands(dev, dtype, r, nc, nf, n, ns=300, seed=4)
+    bad = [5, 513, n - 1]
+    flat = idx.view(n, -1)
+    flat[5, -1] = 300
+    flat[513, 0] = -1
+    flat[n - 1, 0] = 10 ** 6
+    kern, twin, force, _ = _bwd(r)
+    flag = qg.error_flag(dev)
+    try:
+        dw = kern(table, idx, g, nc, nf, **({force: True} if forced else {}))
+        torch.cuda.synchronize()
+        assert flag.item() == 1
+        good = torch.ones(n, dtype=torch.bool, device=dev)
+        good[bad] = False
+        assert torch.isnan(dw[~good]).all()
+        fixed = idx.clone()
+        fixed.view(n, -1)[~good] = 0
+        ref = twin(table, fixed, g, nc, nf)
+        assert (dw[good] - ref[good]).abs().max().item() <= TOL[dtype] * \
+            ref.abs().max().item()
+    finally:
+        flag.zero_()
 
 
 @pytest.mark.cuda
@@ -554,18 +677,25 @@ def test_gather_gradients_on_the_card(dev, rows):
     g = torch.as_tensor(rng.standard_normal((999, nf)))
     fwd = qg.quad_gather_rows if rows else qg.quad_gather
     bwd = qg.quad_gather_rows_bwd_w if rows else qg.quad_gather_bwd_w
+    picked = _picked(r, nc, nf, torch.float64)
     grads = {}
     for where in ("cpu", dev):
         wt = w.to(where).clone().requires_grad_()
         out = fwd(table.to(where), idx.to(where), wt, nc, nf)
-        calls = qg.quad_gather_ref.calls + qg.quad_gather_rows_ref.calls
+        calls = qg.quad_gather_ref.calls + qg.quad_gather_rows_ref.calls \
+            + qg.quad_gather_bwd_w_ref.calls \
+            + qg.quad_gather_rows_bwd_w_ref.calls
         launches = bwd.launches
+        by_kernel = dict(bwd.launches_by_kernel)
         out.backward(g.to(where))
         grads[str(where)] = wt.grad.cpu()
         if where == dev:
             assert bwd.launches == launches + 1
+            assert bwd.launches_by_kernel[picked] == \
+                by_kernel.get(picked, 0) + 1
             assert qg.quad_gather_ref.calls + qg.quad_gather_rows_ref.calls \
-                == calls
+                + qg.quad_gather_bwd_w_ref.calls \
+                + qg.quad_gather_rows_bwd_w_ref.calls == calls
     torch.testing.assert_close(grads[str(dev)], grads["cpu"], rtol=1e-14,
                                atol=1e-14)
     bad = idx.to(dev).clone()

@@ -5,12 +5,13 @@ is held against the plain version on the card in test_torch_cuda.py.
 
 Tolerances: rows exact; combined values max|d| <= tol * max|ref| with
 tol 1e-14 (float64) / 1e-6 (float32) -- the corner sums may round in
-another order.
+another order; the same for the weights' gradients, sums over the fields.
 """
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from grtrans_tpu.emis import polsynchpl as jpl
@@ -18,7 +19,9 @@ from grtrans_tpu.ops.pallas_gather import (quad_combine, vmem_row_gather,
                                            xla_quad_gather)
 from grtrans_tpu_torch.emis import polsynchpl as tpl
 from grtrans_tpu_torch.ops import quad_gather as qgm
-from grtrans_tpu_torch.ops.quad_gather import (quad_gather, quad_gather_ref,
+from grtrans_tpu_torch.ops.quad_gather import (quad_gather,
+                                               quad_gather_bwd_w,
+                                               quad_gather_ref,
                                                quad_gather_rows,
                                                quad_gather_rows_ref)
 
@@ -194,3 +197,87 @@ def test_rows_kernel_choice(name):
     assert qgm.rows_kernel(r, nc, nf, itemsize, True, simple=True) == \
         "simple"
     assert qgm.rows_kernel(r, nc, nf, itemsize, False) == "simple"
+
+
+@pytest.mark.parametrize("name", sorted(GATHER_SHAPES))
+def test_bwd_kernel_choice(name):
+    """The shape rule of quad_gather_bwd_w on the card: the tiled kernel
+    (the forward's tile pipeline) for the tiled forward's shapes when
+    table, g and dw are aligned, the first design ("generic") otherwise or
+    when forced; no wide-row backward."""
+    (nc, nf), kernel = GATHER_SHAPES[name]
+    want = "tiled" if kernel == "tiled" else "generic"
+    assert qgm.bwd_kernel(nc, nf, aligned=True) == want
+    assert qgm.bwd_kernel(nc, nf, aligned=True, generic=True) == "generic"
+    assert qgm.bwd_kernel(nc, nf, aligned=False) == "generic"
+
+
+@pytest.mark.parametrize("name", sorted(ROWS_SHAPES))
+def test_rows_bwd_kernel_choice(name):
+    """The shape rule of quad_gather_rows_bwd_w on the card: the forward's
+    row rule (the bulk-copy pipeline where (R, nc) is instantiated and a
+    row is whole 16-byte pieces of at most 256 bytes, table and g
+    aligned), the first design ("simple") otherwise or when forced."""
+    (r, nc, nf, itemsize), kernel = ROWS_SHAPES[name]
+    assert qgm.rows_bwd_kernel(r, nc, nf, itemsize, True) == kernel
+    assert qgm.rows_bwd_kernel(r, nc, nf, itemsize, True, simple=True) == \
+        "simple"
+    assert qgm.rows_bwd_kernel(r, nc, nf, itemsize, False) == "simple"
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bwd_w_matches_vjp_of_pallas_interpret(dtype):
+    """The weights' gradient of quad_gather (quad_gather_bwd_w, and w.grad
+    through the autograd Function) against jax.vjp in w of the JAX
+    package's own kernel in interpret mode plus its epilogue,
+    quad_combine(vmem_row_gather(table, idx), w): FFJET 4x9, N = 1024 (two
+    BQ blocks); max|d| <= TOL * max|ref| (sums over the 9 fields, in
+    another order)."""
+    table, idx, w = _inputs(dtype, n=1024)
+    g = np.random.default_rng(7).standard_normal((1024, NF)).astype(dtype)
+
+    def f(wj):
+        rows = vmem_row_gather(jnp.asarray(table), jnp.asarray(idx),
+                               interpret=True)
+        return quad_combine(rows, wj, NF)
+
+    _, vjp = jax.vjp(f, jnp.asarray(w))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    dw = quad_gather_bwd_w(torch.from_numpy(table), torch.from_numpy(idx),
+                           torch.from_numpy(g), NC, NF)
+    _close(dw.numpy(), ref, TOL[dtype])
+    wt = torch.from_numpy(w).requires_grad_()
+    quad_gather(torch.from_numpy(table), torch.from_numpy(idx), wt, NC,
+                NF).backward(torch.from_numpy(g))
+    assert torch.equal(wt.grad, dw)
+
+
+@pytest.mark.parametrize("r", [4, 8])
+def test_rows_bwd_w_matches_vjp_of_jnp_gather(r):
+    """The weights' gradient of quad_gather_rows (quad_gather_rows_bwd_w,
+    and w.grad through the autograd Function) against jax.vjp in w of the
+    jnp multi-row gather plus weighted sum that the snapshot samplers of
+    grtrans_tpu leave to XLA (Grmhd3D._gather_cols): R = 4 (a trilinear
+    cell) and 8 (slow light's two slices) rows of nc = 2 x nf = 10, f64;
+    max|d| <= 1e-14 * max|ref| (sums over the 10 fields)."""
+    rng = np.random.default_rng(8)
+    n, nc, nf = 515, 2, 10
+    table = rng.standard_normal((700, nc * nf))
+    idx = rng.integers(0, 700, (n, r)).astype(np.int32)
+    w = rng.uniform(0.0, 1.0, (n, r, nc))
+    g = rng.standard_normal((n, nf))
+
+    def f(wj):
+        rows = jnp.asarray(table)[jnp.asarray(idx)].reshape(n, r, nc, nf)
+        return jnp.sum(rows * wj[..., None], axis=(1, 2))
+
+    _, vjp = jax.vjp(f, jnp.asarray(w))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    dw = qgm.quad_gather_rows_bwd_w(torch.from_numpy(table),
+                                    torch.from_numpy(idx),
+                                    torch.from_numpy(g), nc, nf)
+    _close(dw.numpy(), ref, 1e-14)
+    wt = torch.from_numpy(w).requires_grad_()
+    quad_gather_rows(torch.from_numpy(table), torch.from_numpy(idx), wt, nc,
+                     nf).backward(torch.from_numpy(g))
+    assert torch.equal(wt.grad, dw)
