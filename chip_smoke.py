@@ -127,7 +127,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      recompute, pixel chunks sized to the card's free
      memory (the count printed), launches counted a chunk (quad_gather
      forward and recompute, quad_gather_bwd_w), every backward launch on
-     the kernel its picker chose (launches_by_kernel against the first
+     the kernel its picker chose (launch counts by kernel against the first
      chunk's operands, kept in a second pass), no plain twin called, warm
      time and peak memory; the gradient against central differences on
      the card (1e-2) and, at 16x16 x 64, against the port's CPU gradient
@@ -177,6 +177,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from grtrans_tpu_torch import obs
 
 SEED = 0
 NN = (100, 100, 400)                  # flagship camera: pixels x points
@@ -317,31 +319,34 @@ WRAPPERS = ("quad_gather", "quad_gather_rows", "quad_gather_bwd_w",
             "quad_gather_rows_bwd_w")
 
 
-def reset_counts(qg):
-    for name in WRAPPERS:
-        getattr(qg, name).launches = 0
-        getattr(qg, name).launches_by_kernel.clear()
-        getattr(qg, name).launches_by_dtype.clear()
-    for name in TWINS:
-        getattr(qg, name).calls = 0
+def reset_counts():
+    """Count the gather launches and twin calls from here on (the obs
+    counters as they stand are the base)."""
+    reset_counts.base = obs.counters()
 
 
-def read_counts(qg):
-    by, rows = (qg.quad_gather.launches_by_kernel,
-                qg.quad_gather_rows.launches_by_kernel)
-    bwd, rows_bwd = (qg.quad_gather_bwd_w.launches_by_kernel,
-                     qg.quad_gather_rows_bwd_w.launches_by_kernel)
-    counts = dict(tiled=by["tiled"], wide=by["wide"], generic=by["generic"],
-                  rows_tiled=rows["tiled"], rows_simple=rows["simple"],
-                  bwd_tiled=bwd["tiled"], bwd_generic=bwd["generic"],
-                  rows_bwd_tiled=rows_bwd["tiled"],
-                  rows_bwd_simple=rows_bwd["simple"],
-                  twin_calls=sum(getattr(qg, name).calls for name in TWINS))
+reset_counts.base = collections.Counter()
+
+
+def read_counts():
+    """The launches by kernel and dtype, and the twin calls, since the
+    last reset_counts()."""
+    c = obs.counters()
+    c.subtract(reset_counts.base)
+    counts = dict(tiled=c["quad_gather.launches.tiled"],
+                  wide=c["quad_gather.launches.wide"],
+                  generic=c["quad_gather.launches.generic"],
+                  rows_tiled=c["quad_gather_rows.launches.tiled"],
+                  rows_simple=c["quad_gather_rows.launches.simple"],
+                  bwd_tiled=c["quad_gather_bwd_w.launches.tiled"],
+                  bwd_generic=c["quad_gather_bwd_w.launches.generic"],
+                  rows_bwd_tiled=c["quad_gather_rows_bwd_w.launches.tiled"],
+                  rows_bwd_simple=c["quad_gather_rows_bwd_w.launches.simple"],
+                  twin_calls=sum(c[f"{name}.calls"] for name in TWINS))
     for name in WRAPPERS:
-        wrapper = getattr(qg, name)
-        counts[name] = wrapper.launches
+        counts[name] = c[f"{name}.launches"]
         for dt in ("f32", "f64"):
-            counts[f"{name}_{dt}"] = wrapper.launches_by_dtype[dt]
+            counts[f"{name}_{dt}"] = c[f"{name}.launches.{dt}"]
     return counts
 
 
@@ -500,9 +505,9 @@ def rows_phase(dev, qg):
     table = torch.randn((1_000_000, 22), generator=g, dtype=torch.float32,
                         device=dev)
     idx, w = random_rows(1_000_000, 1_000_000, 4, 2, torch.float32, dev)
-    before = qg.quad_gather_rows.launches_by_kernel["simple"]
+    before = obs.counters()["quad_gather_rows.launches.simple"]
     qg.quad_gather_rows(table, idx, w, 2, 11)
-    if qg.quad_gather_rows.launches_by_kernel["simple"] != before + 1:
+    if obs.counters()["quad_gather_rows.launches.simple"] != before + 1:
         raise AssertionError("2 x 11 float32 did not go to the simple kernel")
     shapes["koral3d R=4 2x11 f32"] = check_rows(
         qg, "koral3d R=4 2x11 f32", table, idx, w, 2, 11)
@@ -511,7 +516,7 @@ def rows_phase(dev, qg):
     # the wide-row kernel at widths ragged against the warp
     for nc_, nf_, dtype in ((2, 101, torch.float32), (3, 45, torch.float64),
                             (1, 257, torch.float64)):
-        before = qg.quad_gather.launches_by_kernel["wide"]
+        before = obs.counters()["quad_gather.launches.wide"]
         rng = np.random.default_rng(SEED)
         tb = torch.as_tensor(rng.standard_normal((300, nc_ * nf_)),
                              dtype=dtype, device=dev)
@@ -521,7 +526,7 @@ def rows_phase(dev, qg):
                              device=dev)
         compare_gather(qg, f"wide ({nc_} x {nf_}) {dtype}", tb, ix, ww, nc_,
                        nf_)
-        if qg.quad_gather.launches_by_kernel["wide"] != before + 1:
+        if obs.counters()["quad_gather.launches.wide"] != before + 1:
             raise AssertionError("the wrapper did not pick the wide kernel")
     # the error flag of the wide and the rows kernels
     flag = qg.error_flag(dev)
@@ -684,12 +689,12 @@ def ffjet_phases(dev, qg):
         model = convert.ffjet_from_arrays(grids, fields, dev)
 
         # 4. the main path, counted
-        reset_counts(qg)
+        reset_counts()
         t0 = time.perf_counter()
         ivals, _, _ = grtrans_run(cfg, model, device=dev)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        counts = read_counts(qg)
+        counts = read_counts()
         launches = counts["quad_gather"]
         if launches == 0:
             raise AssertionError("FFJET path never launched quad_gather")
@@ -786,11 +791,11 @@ def counted_run(qg, dev, name, kw, model=None):
     quad_gather launches)."""
     from grtrans_tpu_torch.api import Grtrans
 
-    reset_counts(qg)
+    reset_counts()
     t0 = time.perf_counter()
     x = Grtrans(**kw).run(model=model)
     first_s = time.perf_counter() - t0
-    counted_run.counts = read_counts(qg)
+    counted_run.counts = read_counts()
     launches = counted_run.counts["quad_gather"]
     if qg.error_flag(dev).item() != 0:
         raise AssertionError(f"{name}: out-of-range table index")
@@ -1261,12 +1266,12 @@ def file_phases(dev, qg):
         if proc.returncode != 0:
             raise AssertionError(f"python -m grtrans_tpu_torch failed:\n"
                                  f"{proc.stderr[-3000:]}")
-        reset_counts(qg)
+        reset_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         cli_main([str(tmp / "files.in"), "--output", str(tmp / "cams.bin")])
         warm_s = time.perf_counter() - t0
-        paths["cli_flagship"] = read_counts(qg)
+        paths["cli_flagship"] = read_counts()
         cli_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         _, fits_cams, fits_keys = fitsio.read_fits(tmp / "cams.fits")
         _, bin_cams, bin_keys = binio.read_camera_bin(tmp / "cams.bin")
@@ -1294,7 +1299,7 @@ def file_phases(dev, qg):
         walls, peaks = {}, {}
         images = []
         for step in ("trace_save", "load"):
-            reset_counts(qg)
+            reset_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
@@ -1302,7 +1307,7 @@ def file_phases(dev, qg):
             torch.cuda.synchronize()
             walls[step] = time.perf_counter() - t0
             peaks[step] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-            paths[f"gdfile_{step}"] = read_counts(qg)
+            paths[f"gdfile_{step}"] = read_counts()
             images.append(ivals)
         plain, _, _ = grtrans_run(cfg, model, device=dev)
         if not torch.equal(images[0], images[1]):
@@ -1345,14 +1350,14 @@ def file_phases(dev, qg):
 
         # 18. one pixel through geodebug, re-integrated on the card
         pixel = int(np.argmax(ref.ivals[:, 0, 0])) + 1
-        reset_counts(qg)
+        reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         dump = geodebug.dump_ray(cfg, pixel, tmp / "ray.npz", model=model,
                                  device=dev)
         dump_s = time.perf_counter() - t0
-        paths["geodebug_ray"] = read_counts(qg)
+        paths["geodebug_ray"] = read_counts()
         dump_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         again = geodebug.reintegrate(geodebug.load(tmp / "ray.npz"), 0,
                                      device=dev)[0]
@@ -1391,7 +1396,7 @@ def pgriter_phase(dev, qg, model):
     pgriter.flux_at = timed
     base._REGISTRY["HARM3D"] = lambda **kw: loads.append(1) or \
         real_factory(**kw)
-    reset_counts(qg)
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     try:
         fitted, flux, hist = pgriter.fit_flux(cfg, target, 4e13, model=model,
@@ -1399,7 +1404,7 @@ def pgriter_phase(dev, qg, model):
     finally:
         pgriter.flux_at = real_flux_at
         base._REGISTRY["HARM3D"] = real_factory
-    counts = read_counts(qg)
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f"pgriter HARM3D {NN[0]}x{NN[1]}x{NN[2]}: mdot {fitted:.9e} g/s "
           f"(target's 6e13) in {len(hist)} renders, flux {flux:.9e} vs "
@@ -1471,10 +1476,10 @@ def mesh_phase(dev, qg, flagship, model, snapshot_image, whole_rows):
           f"{time.perf_counter() - t0:.2f} s")
     try:
         cfg, tmodel = flagship["cfg"], flagship["model"]
-        reset_counts(qg)
+        reset_counts()
         ivals, _, _ = grtrans_run(cfg, tmodel, device=dev, mesh=mesh)
         torch.cuda.synchronize()
-        mesh_counts = read_counts(qg)
+        mesh_counts = read_counts()
         ref = flagship["ivals"]
         rel = ((ivals - ref).abs().sum() / ref.abs().sum()).item()
         t0 = time.perf_counter()
@@ -1512,9 +1517,9 @@ def mesh_phase(dev, qg, flagship, model, snapshot_image, whole_rows):
               f"{ROWS_TOL[torch.float64]:g})")
         if not rel_cols <= ROWS_TOL[torch.float64]:
             raise AssertionError(f"slab columns: {rel_cols}")
-        reset_counts(qg)
+        reset_counts()
         x = Grtrans(**kw).run(model=slabs)
-        slab_counts = read_counts(qg)
+        slab_counts = read_counts()
         rel = (np.abs(x.ivals - snapshot_image).sum()
                / np.abs(snapshot_image).sum())
         t0 = time.perf_counter()
@@ -1789,9 +1794,7 @@ def bwd_kernel_phase(dev, qg):
 def capture_bwd(qg, run):
     """run() with the two backward wrappers wrapped so that each launch's
     operands are kept (as phase 12 keeps the frame's rows).  Returns the
-    list of (wrapper name, operands).  The wrapped name is what the
-    wrapper's own counting reaches meanwhile, so it carries counters of
-    its own, which nothing reads: the counts of a pass are read from
+    list of (wrapper name, operands).  The counts of a pass are read from
     another, counted pass."""
     kept = []
     originals = {name: getattr(qg, name) for name in BWD}
@@ -1800,9 +1803,6 @@ def capture_bwd(qg, run):
         def keep(*args, **kw):
             kept.append((name, args))
             return fn(*args, **kw)
-        keep.launches = 0
-        keep.launches_by_kernel = collections.Counter()
-        keep.launches_by_dtype = collections.Counter()
         return keep
 
     for name, fn in originals.items():
@@ -1892,12 +1892,12 @@ def grad_path(qg, dev, name, prob, params):
         total = torch.zeros((), dtype=torch.float64, device=dev)
         for lo in range(0, npix, chunk):
             if counts is not None:
-                reset_counts(qg)
+                reset_counts()
             loss = chunk_loss(p, (lo, lo + chunk))
             loss.backward()
             if counts is not None:
                 torch.cuda.synchronize()
-                counts.append(read_counts(qg))
+                counts.append(read_counts())
             total += loss.detach()
         return total.item(), {k: v.grad.item() for k, v in p.items()}
 
@@ -2143,12 +2143,12 @@ def mixed_flagship_phase(dev, qg, flagship):
 
     cfg64, model, ref = flagship["cfg"], flagship["model"], flagship["ivals"]
     cfg = dataclasses.replace(cfg64, prec="mixed")
-    reset_counts(qg)
+    reset_counts()
     t0 = time.perf_counter()
     ivals, _, _ = grtrans_run(cfg, model, device=dev)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    counts = read_counts(qg)
+    counts = read_counts()
     if (counts["quad_gather_f32"] < 1 or counts["quad_gather_f64"]
             or counts["quad_gather_rows"] or counts["twin_calls"]):
         raise AssertionError(f"mixed flagship launches {counts}: expected "
@@ -2290,12 +2290,12 @@ def mixed_card_vs_cpu_phase(dev, qg):
                         for k, v in (("spin", 0.998), ("mu0", 0.906))}
 
             p = leaves()
-            reset_counts(qg)
+            reset_counts()
             loss = prob.render(p).abs().sum() / (prob.npix * 4)
             loss.backward()
             torch.cuda.synchronize()
             if prec == "mixed":
-                counts = read_counts(qg)
+                counts = read_counts()
                 kept = capture_bwd(qg, lambda: (prob.render(leaves()).abs()
                                                 .sum().backward()))
                 check_picked(qg, "mixed gradient", kept, counts)
@@ -2414,9 +2414,9 @@ def run(dev):
             ("sphacc f64", 600, 2, 2),
             ("numdisk f64", 5000, 4, 1),
             ("polsynchpl per-sample p f64", 131 * 201, 4, 6)):
-        before = qg.quad_gather.launches_by_kernel["tiled"]
+        before = obs.counters()["quad_gather.launches.tiled"]
         err, times = check_kernel(qg, name, ns, nc, nf, torch.float64, dev)
-        if qg.quad_gather.launches_by_kernel["tiled"] <= before:
+        if obs.counters()["quad_gather.launches.tiled"] <= before:
             raise AssertionError(f"{name}: the wrapper did not pick the "
                                  "tiled kernel")
         shapes[name] = dict(times, max_abs_err=err)

@@ -11,6 +11,7 @@ import math
 import torch
 
 from grtrans_tpu_torch import constants as pc
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.emis import (bb, binned, brems, framework, mixtures,
                                     polsynch)
 from grtrans_tpu_torch.emis import polsynchpl as pl_mod
@@ -138,6 +139,7 @@ def _extra_channels(geo, fv, ei, j, K, prof, ok):
     return torch.stack(out, dim=-1)
 
 
+@obs.spanned("render")
 def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
                 iname="lsoda", nvals=4, standard=1, extra=0, debug=False,
                 prec="f64"):
@@ -166,10 +168,11 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
     # sanitize the fluid four-vectors before the tetrad projection
     okf = torch.isfinite(fv.u).all(-1) & torch.isfinite(fv.b).all(-1)
     like = dict(dtype=fv.u.dtype, device=fv.u.device)
-    u_safe = torch.where(okf[..., None], fv.u,
-                         torch.tensor([1.0, 0.0, 0.0, 0.0], **like))
-    b_safe = torch.where(okf[..., None], fv.b,
-                         torch.tensor([0.0, 0.0, 0.0, 1.0], **like))
+    with obs.sync("driver.render_rays", 2):
+        u_rest = torch.tensor([1.0, 0.0, 0.0, 0.0], **like)
+        b_unit = torch.tensor([0.0, 0.0, 0.0, 1.0], **like)
+    u_safe = torch.where(okf[..., None], fv.u, u_rest)
+    b_safe = torch.where(okf[..., None], fv.b, b_unit)
     k = geo.k
     if mixed:
         r, th, alpha, beta, u_safe, b_safe, k = (

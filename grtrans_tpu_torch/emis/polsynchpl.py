@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from grtrans_tpu_torch import constants as pc
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.ops.intcast import trunc_clip
 from grtrans_tpu_torch.ops.interp import get_weight
 from grtrans_tpu_torch.ops.quad_gather import (bilinear_packed,
@@ -32,6 +33,11 @@ _G_ORDER = ("gx", "gp", "gv", "ga", "gap", "gav")
 
 @lru_cache(maxsize=1)
 def _build_tables():
+    with obs.setup("tables", table="polsynchpl.G"):
+        return _tables()
+
+
+def _tables():
     from scipy import special
     from scipy.integrate import cumulative_trapezoid
 
@@ -92,8 +98,9 @@ def _g_all(x, p):
     blends them with weights (1 - wx, wx), then exp."""
     lx = torch.log(x.clamp(X_LO, X_HI))
     rows = _g_rows(p)
-    pair = torch.as_tensor(pair_rows(rows), dtype=lx.dtype,
-                           device=lx.device)                    # (NX, 12)
+    with obs.sync("polsynchpl._g_all"):
+        pair = torch.as_tensor(pair_rows(rows), dtype=lx.dtype,
+                               device=lx.device)                # (NX, 12)
     ix, wx = _xweight(lx)
     w = torch.stack([1 - wx, wx], dim=-1).reshape(-1, 2)
     v = quad_gather(pair, ix.reshape(-1), w, 2, 6)
@@ -105,8 +112,10 @@ def _pg_packed(dtype, device):
     """The six (p, x) tables stacked (NP, NX, 6) and corner-packed for a
     bilinear lookup, (NP * NX, 4 x 6), placed on `device`."""
     _, _, tables = _build_tables()
-    packed = pack_corners_2d(np.stack([tables[n] for n in _G_ORDER], axis=-1))
-    return torch.as_tensor(packed, dtype=dtype, device=device)
+    with obs.setup("tables", table="polsynchpl.pg_packed"):
+        packed = pack_corners_2d(np.stack([tables[n] for n in _G_ORDER],
+                                          axis=-1))
+        return torch.as_tensor(packed, dtype=dtype, device=device)
 
 
 def _g_all_p(x, p):

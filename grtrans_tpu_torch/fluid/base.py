@@ -16,6 +16,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from grtrans_tpu_torch import constants as pc
+from grtrans_tpu_torch import obs
 
 CONST, TAIL = 0, 1
 
@@ -244,7 +245,9 @@ def vals_outside_horizon(vals, x, k, a, **kwargs):
     from grtrans_tpu_torch.geometry import kerr
     rh = kerr.horizon(a.detach() if torch.is_tensor(a) else a)
     hole = ~(x[..., 1].detach() > rh)
-    if not bool(hole.any()):
+    with obs.sync("vals_outside_horizon"):
+        inside = bool(hole.any())
+    if not inside:
         return vals(x, k, a, **kwargs)
     with torch.no_grad():
         plain = vals(x, k, a, **kwargs)

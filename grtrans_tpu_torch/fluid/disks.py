@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from grtrans_tpu_torch import constants as pc
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.analytic import ThinDisk, _u_from_3vel
 from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
@@ -82,6 +83,7 @@ class PhatDisk(nn.Module):
     sample is one row gather and a two-term combine (quad_gather with
     nc = 2, nf = 1 + nfreq_tab)."""
 
+    @obs.model_setup
     def __init__(self, freq_tab, r_tab, om_tab, fnu_tab, *, device):
         super().__init__()
         rows = np.concatenate([np.asarray(om_tab, np.float64)[:, None],
@@ -141,6 +143,7 @@ class NumDisk(nn.Module):
     holds T at the four corners of that cell (quad_gather with nc = 4,
     nf = 1)."""
 
+    @obs.model_setup
     def __init__(self, table, *, device):
         super().__init__()
         self.nr_, self.nphi_ = nr, nphi = int(table["nr"]), int(table["nphi"])

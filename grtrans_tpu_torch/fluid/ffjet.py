@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
 from grtrans_tpu_torch.geometry import fourvector as fv
@@ -66,6 +67,7 @@ class FFJet(nn.Module):
 
     FIELDS = ("rho", "vr", "vth", "vph", "u0", "b0", "br", "bth", "bph")
 
+    @obs.model_setup
     def __init__(self, grids, fields, ntscl=2.0, nrscl=70.0, *, device):
         super().__init__()
         self.ntscl = ntscl          # nonthermal density scale (sp nfac)
@@ -115,8 +117,9 @@ class FFJet(nn.Module):
         table = self.fquad32 if r.dtype == torch.float32 else self.fquad
         vals = quad_gather(table, i00, w.reshape(-1, 4), 4, 9)
         vals = vals.reshape(r.shape + (9,))
-        fill = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0],
-                            dtype=vals.dtype, device=vals.device)
+        with obs.sync("ffjet.vals"):
+            fill = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+                                dtype=vals.dtype, device=vals.device)
         vals = torch.where(inside[..., None], vals, fill)
         rho, vrl, vtl, vpl, u0, b0, br, bth, bph = vals.unbind(-1)
 

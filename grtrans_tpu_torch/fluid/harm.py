@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
 from grtrans_tpu_torch.geometry import fourvector as fv
@@ -82,7 +83,9 @@ def four_vectors(col, outside, r, th, a):
     vtl = torch.where(outside, 0.0, col["vtl"])
     vpl = torch.where(outside, 0.0, col["vpl"])
     b = torch.stack([col["b0"], col["br"], col["bth"], col["bph"]], dim=-1)
-    unit = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=b.dtype, device=b.device)
+    with obs.sync("harm.four_vectors"):
+        unit = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=b.dtype,
+                            device=b.device)
     b = torch.where(outside[..., None], unit, b)
     bmag = kerr.safe_sqrt(fv.dot(kerr.metric_cov(r, th, a), b, b))
     vr, vth, om = kerr.lnrf_frame_inv(vrl, vtl, vpl, r, a, th)
@@ -129,6 +132,7 @@ class Harm(nn.Module):
     `read_harm_dump`; mdot_code, the code-unit accretion rate
     (fluid.f90:964); nt, see base.one_snapshot."""
 
+    @obs.model_setup
     def __init__(self, dfile="dump040", hfile=None, dump=None,
                  mdot_code=0.003, nt=1, *, device):
         super().__init__()

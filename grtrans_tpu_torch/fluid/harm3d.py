@@ -14,6 +14,7 @@ import math
 
 import numpy as np
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base, grmhd3d
 from grtrans_tpu_torch.fluid.harm import (f64, harm_convert, lnrf_storage,
                                           umks2uks_bl)
@@ -65,6 +66,7 @@ class Harm3D(grmhd3d.Grmhd3D):
     keyword h is taken, as in grtrans_tpu, and refused unless 1.0
     (base.not_read)."""
 
+    @obs.model_setup
     def __init__(self, dfile="dump040.bin", hfile=None, dump=None,
                  mdot_code=0.003, nt=1, h=1.0, *, device):
         super().__init__()

@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from grtrans_tpu_torch import constants as pc
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
 from grtrans_tpu_torch.fluid.harm import f64, four_vectors, lnrf_storage
@@ -340,6 +341,7 @@ class HarmPI(nn.Module):
     mdot_code (default G M / c^3 at convert); nt, see base.one_snapshot.
     The electron model is picked by gmin, see the module docstring."""
 
+    @obs.model_setup
     def __init__(self, dfile="", hfile=None, dump=None, mdot_code=None,
                  nt=1, *, device):
         super().__init__()

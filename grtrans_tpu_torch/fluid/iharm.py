@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from grtrans_tpu_torch import constants as pc
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base, grmhd3d
 from grtrans_tpu_torch.fluid.base import EmisInputs
 from grtrans_tpu_torch.fluid.harm import f64, lnrf_storage, x2_of_theta
@@ -87,6 +88,7 @@ class Iharm(grmhd3d.Grmhd3D):
 
     interp_td_in_x2 = True
 
+    @obs.model_setup
     def __init__(self, dfile="iharm_dump", hfile=None, dump=None, nt=1, *,
                  device):
         super().__init__()

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from grtrans_tpu_torch import constants as pc
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
 from grtrans_tpu_torch.fluid.grmhd3d import phi_pair_pack, trilinear_rows
@@ -239,6 +240,7 @@ class Koral(_KoralBase):
     dfile (and hfile) or dump= the dict of `read_koral_dump`; scalefac;
     nrelbin, relgammamin, relgammamax for dumps with nonthermal bins."""
 
+    @obs.model_setup
     def __init__(self, dfile="", hfile=None, scalefac=1.0, nrelbin=0,
                  relgammamin=1.0, relgammamax=1.0, dump=None, *, device):
         super().__init__()
@@ -280,6 +282,7 @@ class Koral3D(_KoralBase):
     BOTJET variants (fluid_model_koral3d.f90; masks koral3d_vals:283-310
     and the type branches of convert_fluidvars_koral).  fargs as Koral."""
 
+    @obs.model_setup
     def __init__(self, dfile="", hfile=None, scalefac=1.0, nrelbin=0,
                  relgammamin=1.0, relgammamax=1.0, region=None, dump=None, *,
                  device):

@@ -23,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.base import EmisInputs
 from grtrans_tpu_torch.fluid.harm import f64
@@ -89,6 +90,7 @@ class MB09(ThickDisk):
 
     thfunc = staticmethod(calcthmks9)
 
+    @obs.model_setup
     def __init__(self, dfile="", gfile="", dump=None, asim_in=0.9, nt=1,
                  hfile=None, jonfix=1, mdot_code=0.0013, *, device):
         super(ThickDisk, self).__init__()

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from grtrans_tpu_torch import constants as pc
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
 from grtrans_tpu_torch.ops.interp import get_weight
@@ -169,6 +170,7 @@ class SphAcc(nn.Module):
     its pair-packed table holds (u^r, T) at radii ix and ix + 1
     (quad_gather with nc = 2, nf = 2)."""
 
+    @obs.model_setup
     def __init__(self, r_tab, v_tab, T_tab, *, device):
         super().__init__()
         rows = np.stack([np.asarray(v_tab, np.float64),

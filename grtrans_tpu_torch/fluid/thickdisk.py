@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.fluid import base
 from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
 from grtrans_tpu_torch.fluid.grmhd3d import (FIELDS, phi_pair_pack,
@@ -153,6 +154,7 @@ class ThickDisk(nn.Module):
 
     thfunc = staticmethod(calcthmks6)
 
+    @obs.model_setup
     def __init__(self, dfile="", hfile=None, jonfix=1, dump=None,
                  mdot_code=0.0013, nt=1, *, device):
         super().__init__()

@@ -7,6 +7,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.ops import scalar as sc
 
 INPUT_LIMIT = 1e-10  # tiny-value clamp, geokerr_wrapper.f:204-211
@@ -62,7 +63,8 @@ def make_camera(a, mu0, a1, a2, b1, b2, nro, nphi, nrotype=2, rcut=1.0, *,
     sm = np.where((beta >= 0.0) & (mu0 < 1.0), 1.0, -1.0)
 
     def dev(x):
-        return torch.as_tensor(np.asarray(x, np.float64), device=device)
+        with obs.sync("camera.make_camera"):
+            return torch.as_tensor(np.asarray(x, np.float64), device=device)
 
     return Camera(alpha=dev(alpha), beta=dev(beta), l=dev(l), q2=dev(q2),
                   sm=dev(sm), su=dev(np.ones_like(l)), u0=float(u0),

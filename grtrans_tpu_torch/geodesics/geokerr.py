@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.geometry import kerr
 from grtrans_tpu_torch.ops import polyroots
 from grtrans_tpu_torch.ops import scalar as sc
@@ -364,7 +365,8 @@ def _cumulative_phases(st, a, l, lam_grid, u_grid=None, mu_grid=None,
             np.arange(0, _PHASE_WIN), np.arange(mid - _PHASE_WIN,
                                                 mid + _PHASE_WIN),
             np.arange(nseg - _PHASE_WIN, nseg)]), 0, nseg - 1))
-        wi = torch.as_tensor(widx, device=lam_grid.device)
+        with obs.sync("geokerr._cumulative_phases"):
+            wi = torch.as_tensor(widx, device=lam_grid.device)
         un = _hermite_nodes_ep(u_grid[..., wi], u_grid[..., wi + 1],
                                du_g[..., wi], du_g[..., wi + 1],
                                dseg[..., wi], x)
@@ -480,6 +482,7 @@ def _coarse_nodes(npts, coarse):
     return idxs, jmap, tmap
 
 
+@obs.spanned("trace")
 def trace(a, mu0, alpha, beta, l, q2, sm, u0, npts, uout=None, phi0=0.0,
           prec="f64", coarse=1):
     """Trace rays from the camera: npts samples even in Mino time, from
@@ -595,6 +598,7 @@ def trace(a, mu0, alpha, beta, l, q2, sm, u0, npts, uout=None, phi0=0.0,
                           valid=valid, status=status)
 
 
+@obs.spanned("trace")
 def camera_delay(a, mu0, alpha, beta, l, q2, sm, u0, uout):
     """Per-ray coordinate-time delay from the camera (u0) to the trace
     start (uout), which trace(uout=...) leaves out of its t coordinate
@@ -616,6 +620,7 @@ def camera_delay(a, mu0, alpha, beta, l, q2, sm, u0, uout):
     return dt_c[..., -1]
 
 
+@obs.spanned("trace")
 def trace_polar(a, mu0, alpha, beta, l, q2, sm, u0, npts=1, phi0=0.0,
                 crossing=1):
     """Trace to the `crossing`-th crossing of the equatorial plane

@@ -23,6 +23,8 @@ import math
 import torch
 import torch.utils.checkpoint
 
+from grtrans_tpu_torch import obs
+
 MAX_TAU = 10.0
 THIN = 1e-2    # DELO: cells shallower than this take the Taylor branch
 BLK = 8     # cells composed per march step
@@ -396,6 +398,8 @@ def _march(maps, cell_ok, I, profile, recompute=False):
     jax.checkpoint (integrate/solvers.py:600-605, :622)."""
     ncell = cell_ok.shape[-1]
     cell_ok = _far_first(cell_ok, _pad(ncell))
+    nblocks = cell_ok.shape[-1] // BLK
+    obs.count("march.blocks", nblocks)
     I_far = I
     rows = []
 
@@ -413,14 +417,16 @@ def _march(maps, cell_ok, I, profile, recompute=False):
             Ob, pb = _compose((O[..., jj], p[..., jj]), (Ob, pb))
         return _mm(Ob, I) + pb, None
 
-    for lo in range(0, cell_ok.shape[-1], BLK):
-        if recompute:
-            I, out = torch.utils.checkpoint.checkpoint(
-                step, I, lo, use_reentrant=False, preserve_rng_state=False)
-        else:
-            I, out = step(I, lo)
-        if profile:
-            rows.extend(out.unbind(0))
+    with obs.span("march", blocks=nblocks):
+        for lo in range(0, cell_ok.shape[-1], BLK):
+            if recompute:
+                I, out = torch.utils.checkpoint.checkpoint(
+                    step, I, lo, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                I, out = step(I, lo)
+            if profile:
+                rows.extend(out.unbind(0))
     if not profile:
         return I[:, 0].transpose(0, 1)
     # rows[m]: after the first m + 1 cells from the far end, so sample i
@@ -779,7 +785,8 @@ def lsoda_solve(lam, j, K, mask=None, max_tau=MAX_TAU, I0=None, atol=1e-8,
         cur = formal_solve(lam, j, K, mask, max_tau, I0, substeps=s)
         if prev is not None:
             diff = (cur - prev).abs() / 3.0
-            err_scaled = (diff / (atol + rtol * cur.abs())).max().item()
+            with obs.sync("lsoda_solve"):
+                err_scaled = (diff / (atol + rtol * cur.abs())).max().item()
             if err_scaled <= 1.0 or s >= max_substeps:
                 info = {"substeps": s,
                         "err_est": diff.reshape(-1, 4).amax(0).cpu().numpy(),

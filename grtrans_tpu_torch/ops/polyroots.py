@@ -5,6 +5,8 @@ by real part (the turning-point landmarks depend on that order)."""
 
 import torch
 
+from grtrans_tpu_torch import obs
+
 N_ITER = 24
 BIG = 1e30
 
@@ -28,8 +30,9 @@ def _dk(coeffs, nroots):
         r = torch.maximum(r, c.abs())
     r = 1.0 + r
     like = dict(dtype=r.dtype, device=r.device)
-    base_re = torch.tensor([0.4, -0.65, -0.908, -0.0959][:n], **like)
-    base_im = torch.tensor([0.9, 0.72, -0.297, -0.936][:n], **like)
+    with obs.sync("polyroots._dk", 2):
+        base_re = torch.tensor([0.4, -0.65, -0.908, -0.0959][:n], **like)
+        base_im = torch.tensor([0.9, 0.72, -0.297, -0.936][:n], **like)
     zr = r[..., None] * base_re
     zi = r[..., None] * base_im
     cs = [c[..., None] for c in coeffs]

@@ -53,15 +53,15 @@ each other.
 
 The library is compiled with nvcc on first use into
 grtrans_tpu_torch/_build/, keyed by a hash of its source, and bound with
-ctypes.  `quad_gather.launches`, `quad_gather_rows.launches`,
-`quad_gather_bwd_w.launches` and `quad_gather_rows_bwd_w.launches` count
-kernel launches; `launches_by_dtype` of each wrapper splits them into the
-"f32" and "f64" instantiations, and `launches_by_kernel` by kernel.  The
-plain twins count their calls (`calls`), so that a run can show that no
-path on the card reached them.
+ctypes (the set-up span "setup.kernels"; the counter "kernel_builds"
+counts nvcc runs).  Each of the four wrappers is the span "gather" and
+counts its queries ("gather.queries") and, in the obs counters, its
+kernel launches ("<wrapper>.launches"), split by kernel
+("<wrapper>.launches.tiled", ...) and by instantiation
+("<wrapper>.launches.f64", "<wrapper>.launches.f32").  The plain twins
+count their calls ("<twin>.calls"), so that a run can show that no path on
+the card reached them.
 """
-
-import collections
 
 import ctypes
 import hashlib
@@ -72,6 +72,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from grtrans_tpu_torch import obs
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "quad_gather.cu"
@@ -131,19 +133,17 @@ def bilinear_packed(table, n2, nf, i1, i2, w1, w2):
 
 def quad_gather_ref(table, idx, w, nc, nf):
     """Plain PyTorch version: (table[idx].view(N, nc, nf) * w).sum(corners)."""
-    quad_gather_ref.calls += 1
+    obs.count("quad_gather_ref.calls")
     n = idx.shape[0]
     return (table[idx.long()].view(n, nc, nf) * w[..., None]).sum(-2)
 
 
 def quad_gather_bwd_w_ref(table, idx, g, nc, nf):
     """Plain PyTorch version of the weights' gradient: (N, nc)."""
-    quad_gather_bwd_w_ref.calls += 1
+    obs.count("quad_gather_bwd_w_ref.calls")
     n = idx.shape[0]
     return (table[idx.long()].view(n, nc, nf) * g[:, None, :]).sum(-1)
 
-
-quad_gather_ref.calls = quad_gather_bwd_w_ref.calls = 0
 
 
 def _check_operands(table, idx, x, nc, nf, rows, grad=False):
@@ -215,14 +215,11 @@ def quad_gather(table, idx, w, nc, nf, generic=False):
     table's dtype; all contiguous on one device.  Returns (N, nf),
     differentiable in w."""
     _check_operands(table, idx, w, nc, nf, rows=False)
-    if _differentiable(table, w):
-        return _QuadGather.apply(table, idx, w, nc, nf, generic)
-    return _gather(table, idx, w, nc, nf, generic)
-
-
-quad_gather.launches = 0
-quad_gather.launches_by_kernel = collections.Counter()
-quad_gather.launches_by_dtype = collections.Counter()
+    obs.count("gather.queries", idx.shape[0])
+    with obs.span("gather", op="quad_gather"):
+        if _differentiable(table, w):
+            return _QuadGather.apply(table, idx, w, nc, nf, generic)
+        return _gather(table, idx, w, nc, nf, generic)
 
 
 def quad_gather_bwd_w(table, idx, g, nc, nf, generic=False):
@@ -231,22 +228,17 @@ def quad_gather_bwd_w(table, idx, g, nc, nf, generic=False):
     one `bwd_kernel` picks; `generic` forces the first design, for timing),
     the plain version on the CPU."""
     _check_operands(table, idx, g, nc, nf, rows=False, grad=True)
-    if table.device.type == "cpu":
-        return quad_gather_bwd_w_ref(table, idx, g, nc, nf)
-    n = idx.shape[0]
-    dw = torch.empty((n, nc), dtype=table.dtype, device=table.device)
-    kernel = bwd_kernel(nc, nf, _aligned(table, g, dw), generic)
-    _launch_bwd("quad_gather_bwd_w", table, idx, g, dw,
-                (n, table.shape[0], nc, nf, _KERNELS.index(kernel)))
-    quad_gather_bwd_w.launches += 1
-    quad_gather_bwd_w.launches_by_kernel[kernel] += 1
-    quad_gather_bwd_w.launches_by_dtype[dtype_name(table)] += 1
-    return dw
-
-
-quad_gather_bwd_w.launches = 0
-quad_gather_bwd_w.launches_by_kernel = collections.Counter()
-quad_gather_bwd_w.launches_by_dtype = collections.Counter()
+    obs.count("gather.queries", idx.shape[0])
+    with obs.span("gather", op="quad_gather_bwd_w"):
+        if table.device.type == "cpu":
+            return quad_gather_bwd_w_ref(table, idx, g, nc, nf)
+        n = idx.shape[0]
+        dw = torch.empty((n, nc), dtype=table.dtype, device=table.device)
+        kernel = bwd_kernel(nc, nf, _aligned(table, g, dw), generic)
+        _launch_bwd("quad_gather_bwd_w", table, idx, g, dw,
+                    (n, table.shape[0], nc, nf, _KERNELS.index(kernel)))
+        _count_launch("quad_gather_bwd_w", kernel, table)
+        return dw
 
 TILED_SHAPES = ((4, 9), (2, 6), (4, 6), (4, 10), (4, 11), (2, 2), (4, 1))
 WIDE_MIN_NF = 32
@@ -284,7 +276,7 @@ def bwd_kernel(nc, nf, aligned, generic=False):
 def quad_gather_rows_ref(table, idx, w, nc, nf):
     """Plain PyTorch version: the R gathered rows of each query, viewed
     (N, R, nc, nf), weighted and summed over rows and corners."""
-    quad_gather_rows_ref.calls += 1
+    obs.count("quad_gather_rows_ref.calls")
     n, r = idx.shape
     rows = table[idx.long().reshape(-1)].view(n, r, nc, nf)
     return (rows * w[..., None]).sum((1, 2))
@@ -292,13 +284,11 @@ def quad_gather_rows_ref(table, idx, w, nc, nf):
 
 def quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf):
     """Plain PyTorch version of the weights' gradient: (N, R, nc)."""
-    quad_gather_rows_bwd_w_ref.calls += 1
+    obs.count("quad_gather_rows_bwd_w_ref.calls")
     n, r = idx.shape
     rows = table[idx.long().reshape(-1)].view(n, r, nc, nf)
     return (rows * g[:, None, None, :]).sum(-1)
 
-
-quad_gather_rows_ref.calls = quad_gather_rows_bwd_w_ref.calls = 0
 
 
 class _QuadGatherRows(torch.autograd.Function):
@@ -325,9 +315,12 @@ def quad_gather_rows(table, idx, w, nc, nf, simple=False, dedup=True):
     differentiable in w.  `simple` and `dedup` (lanes of a warp that name
     one row share its copy) only choose among the CUDA kernels."""
     _check_operands(table, idx, w, nc, nf, rows=True)
-    if _differentiable(table, w):
-        return _QuadGatherRows.apply(table, idx, w, nc, nf, simple, dedup)
-    return _gather_rows(table, idx, w, nc, nf, simple, dedup)
+    obs.count("gather.queries", idx.shape[0])
+    with obs.span("gather", op="quad_gather_rows"):
+        if _differentiable(table, w):
+            return _QuadGatherRows.apply(table, idx, w, nc, nf, simple,
+                                         dedup)
+        return _gather_rows(table, idx, w, nc, nf, simple, dedup)
 
 
 def quad_gather_rows_bwd_w(table, idx, g, nc, nf, simple=False):
@@ -336,24 +329,26 @@ def quad_gather_rows_bwd_w(table, idx, g, nc, nf, simple=False):
     (the one `rows_bwd_kernel` picks; `simple` forces the first design, for
     timing), the plain version on the CPU."""
     _check_operands(table, idx, g, nc, nf, rows=True, grad=True)
-    if table.device.type == "cpu":
-        return quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf)
-    n, r = idx.shape
-    dw = torch.empty((n, r, nc), dtype=table.dtype, device=table.device)
-    kernel = rows_bwd_kernel(r, nc, nf, table.element_size(),
-                             _aligned(table, g), simple)
-    _launch_bwd("quad_gather_rows_bwd_w", table, idx, g, dw,
-                (n, table.shape[0], r, nc, nf,
-                 _ROWS_KERNELS.index(kernel)))
-    quad_gather_rows_bwd_w.launches += 1
-    quad_gather_rows_bwd_w.launches_by_kernel[kernel] += 1
-    quad_gather_rows_bwd_w.launches_by_dtype[dtype_name(table)] += 1
-    return dw
+    obs.count("gather.queries", idx.shape[0])
+    with obs.span("gather", op="quad_gather_rows_bwd_w"):
+        if table.device.type == "cpu":
+            return quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf)
+        n, r = idx.shape
+        dw = torch.empty((n, r, nc), dtype=table.dtype, device=table.device)
+        kernel = rows_bwd_kernel(r, nc, nf, table.element_size(),
+                                 _aligned(table, g), simple)
+        _launch_bwd("quad_gather_rows_bwd_w", table, idx, g, dw,
+                    (n, table.shape[0], r, nc, nf,
+                     _ROWS_KERNELS.index(kernel)))
+        _count_launch("quad_gather_rows_bwd_w", kernel, table)
+        return dw
 
 
-quad_gather_rows_bwd_w.launches = 0
-quad_gather_rows_bwd_w.launches_by_kernel = collections.Counter()
-quad_gather_rows_bwd_w.launches_by_dtype = collections.Counter()
+def _count_launch(wrapper, kernel, table):
+    """Count one launch of `wrapper`, by kernel and by instantiation."""
+    obs.count(f"{wrapper}.launches")
+    obs.count(f"{wrapper}.launches.{kernel}")
+    obs.count(f"{wrapper}.launches.{dtype_name(table)}")
 
 
 def _launch_bwd(name, table, idx, g, dw, sizes):
@@ -389,15 +384,9 @@ def _gather_rows(table, idx, w, nc, nf, simple, dedup):
                 _ROWS_KERNELS.index(kernel), int(dedup), stream)
     if rc != 0:
         raise RuntimeError(f"quad_gather_rows launch failed: CUDA error {rc}")
-    quad_gather_rows.launches += 1
-    quad_gather_rows.launches_by_kernel[kernel] += 1
-    quad_gather_rows.launches_by_dtype[dtype_name(table)] += 1
+    _count_launch("quad_gather_rows", kernel, table)
     return out
 
-
-quad_gather_rows.launches = 0
-quad_gather_rows.launches_by_kernel = collections.Counter()
-quad_gather_rows.launches_by_dtype = collections.Counter()
 
 # (R, nc): the snapshot's trilinear cell, slow light, HARMPI.  The binned
 # populations (R = 8 or 4 of nc = 1) take the simple kernel: their ~1e5
@@ -456,9 +445,7 @@ def _launch(table, idx, w, nc, nf, generic):
                 variant, stream)
     if rc != 0:
         raise RuntimeError(f"quad_gather launch failed: CUDA error {rc}")
-    quad_gather.launches += 1
-    quad_gather.launches_by_kernel[kernel] += 1
-    quad_gather.launches_by_dtype[dtype_name(table)] += 1
+    _count_launch("quad_gather", kernel, table)
     return out
 
 
@@ -492,6 +479,7 @@ def build(source=SOURCE):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    obs.count("kernel_builds")
     proc = subprocess.run(cmd, capture_output=True, text=True)
     so.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -528,5 +516,7 @@ def load_library():
     signatures."""
     global _lib
     if _lib is None:
-        _lib = bind(ctypes.CDLL(str(build())))
+        with obs.setup("kernels") as rec:
+            rec.attrs["built"] = not library_path().exists()
+            _lib = bind(ctypes.CDLL(str(build())))
     return _lib

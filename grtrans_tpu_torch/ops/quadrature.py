@@ -7,6 +7,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from grtrans_tpu_torch import obs
+
 
 @lru_cache(maxsize=None)
 def gl_nodes(n):
@@ -18,8 +20,9 @@ def gl_nodes(n):
 def gl_tensors(n, like):
     """gl_nodes(n) as tensors of `like`'s dtype on its device."""
     x, w = gl_nodes(n)
-    return (torch.as_tensor(x, dtype=like.dtype, device=like.device),
-            torch.as_tensor(w, dtype=like.dtype, device=like.device))
+    with obs.sync("quadrature.gl_tensors", 2):
+        return (torch.as_tensor(x, dtype=like.dtype, device=like.device),
+                torch.as_tensor(w, dtype=like.dtype, device=like.device))
 
 
 def integrate(f, a, b, n=32):

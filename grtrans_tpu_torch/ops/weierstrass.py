@@ -5,6 +5,7 @@ duplication steps, masked per element."""
 
 import torch
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.ops.intcast import to_int32
 
 K_SERIES = 16
@@ -58,7 +59,11 @@ def wp(z, g2, g3):
     p = 1.0 / z2 + z2 * p_ser
     dp = -2.0 / (z2 * zs) + zs * dp_ser
 
-    for i in range(int(n.max()) if n.numel() else 0):
+    doublings = 0
+    if n.numel():
+        with obs.sync("weierstrass.wp"):
+            doublings = int(n.max())
+    for i in range(doublings):
         ddp = 6.0 * p * p - 0.5 * g2          # wp''
         dddp = 12.0 * p * dp                  # wp'''
         safe = torch.where(dp.abs() > 1e-37, dp, 1e-37)

@@ -11,7 +11,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from grtrans_tpu_torch import driver
+from grtrans_tpu_torch import driver, obs
 from grtrans_tpu_torch.fluid.base import (CONST, TAIL, SourceParams,
                                           load_fluid_model)
 from grtrans_tpu_torch.geodesics import cache as geo_cache
@@ -133,122 +133,132 @@ def grtrans_run(cfg, model=None, *, device, chunk=None, reuse_geo=False,
                              "mesh shards the pixel axis; chunking bounds "
                              "one device's memory")
         sharding.check_device(mesh, device)
-    t_start = time.perf_counter()
-    a = cfg.spin
-    a1, a2, b1, b2 = cfg.gridvals
     nro, nphi, nup = cfg.nn
-    freqs = cfg.freqs()
-    freq_list = [float(f) for f in freqs]
-    mus = cfg.mus()
-    if model is None:
-        model = load_fluid_model(cfg.fname, device=device, **cfg.fargs)
-    timedep = getattr(model, "timedep", False)
-    slow_light = cfg.nload > 1 and getattr(model, "nt_slices", 1) > 1
+    with obs.run(ncams=cfg.nmu * cfg.nt * cfg.nmdot * cfg.nfreq,
+                 npix=nro * nphi):
+        t_start = time.perf_counter()
+        a = cfg.spin
+        a1, a2, b1, b2 = cfg.gridvals
+        freqs = cfg.freqs()
+        freq_list = [float(f) for f in freqs]
+        mus = cfg.mus()
+        if model is None:
+            model = load_fluid_model(cfg.fname, device=device, **cfg.fargs)
+        timedep = getattr(model, "timedep", False)
+        slow_light = cfg.nload > 1 and getattr(model, "nt_slices", 1) > 1
 
-    def camera(mu0):
-        return cam_mod.make_camera(a, float(mu0), a1, a2, b1, b2, nro, nphi,
-                                   cfg.nrotype, cfg.rcut, device=device)
+        def camera(mu0):
+            return cam_mod.make_camera(a, float(mu0), a1, a2, b1, b2, nro,
+                                       nphi, cfg.nrotype, cfg.rcut,
+                                       device=device)
 
-    def pixels(cam, s):
-        return cam._replace(alpha=cam.alpha[s], beta=cam.beta[s],
-                            l=cam.l[s], q2=cam.q2[s], sm=cam.sm[s])
+        def pixels(cam, s):
+            return cam._replace(alpha=cam.alpha[s], beta=cam.beta[s],
+                                l=cam.l[s], q2=cam.q2[s], sm=cam.sm[s])
 
-    # every mu-camera shares the pixel grid and so the observer u0
-    probe = camera(mus[0])
-    uout = camera_uout(cfg, probe)
-    # the pixel subrange (1-based inclusive, read_inputs.f90:22-23), and
-    # this process's block of it under a mesh
-    cut = slice(max(cfg.i1 - 1, 0), cfg.i2 if cfg.i2 > 0 else None)
-    mine = slice(None)
-    if mesh is not None:
-        mine = slice(*sharding.pixel_block(mesh, probe.alpha[cut].shape[0]))
-    ivals, ab = [], None
-    for mu0 in mus:
-        cam = pixels(camera(mu0), cut)
-        if ab is None:
-            ab = torch.stack([cam.alpha, cam.beta], dim=0)
-        cam = pixels(cam, mine)
-        npix = cam.alpha.shape[0]
-        step = npix if chunk is None else min(chunk, npix)
-        t0sh = None
-        if slow_light and uout is not None:
-            # one minimum over the whole camera, not over a pixel block;
-            # without uout the trace starts at the camera and t is global
-            t0sh = geokerr.camera_delay(a, float(mu0), cam.alpha, cam.beta,
-                                        cam.l, cam.q2, cam.sm, cam.u0,
-                                        uout)
-            tmin = t0sh.min()
-            if mesh is not None:
-                tmin = sharding.all_reduce(mesh, tmin, dist.ReduceOp.MIN)
-            t0sh = t0sh - tmin
+        # every mu-camera shares the pixel grid and so the observer u0
+        probe = camera(mus[0])
+        uout = camera_uout(cfg, probe)
+        # the pixel subrange (1-based inclusive, read_inputs.f90:22-23), and
+        # this process's block of it under a mesh
+        cut = slice(max(cfg.i1 - 1, 0), cfg.i2 if cfg.i2 > 0 else None)
+        mine = slice(None)
+        if mesh is not None:
+            mine = slice(*sharding.pixel_block(mesh,
+                                               probe.alpha[cut].shape[0]))
+        ivals, ab = [], None
+        for mu0 in mus:
+            cam = pixels(camera(mu0), cut)
+            if ab is None:
+                ab = torch.stack([cam.alpha, cam.beta], dim=0)
+            cam = pixels(cam, mine)
+            npix = cam.alpha.shape[0]
+            step = npix if chunk is None else min(chunk, npix)
+            t0sh = None
+            if slow_light and uout is not None:
+                # one minimum over the whole camera, not over a pixel block;
+                # without uout the trace starts at the camera and t is global
+                t0sh = geokerr.camera_delay(a, float(mu0), cam.alpha, cam.beta,
+                                            cam.l, cam.q2, cam.sm, cam.u0,
+                                            uout)
+                tmin = t0sh.min()
+                if mesh is not None:
+                    tmin = sharding.all_reduce(mesh, tmin, dist.ReduceOp.MIN)
+                t0sh = t0sh - tmin
 
-        bundle = None
-        if gdfile is not None:
-            # a chunked camera keeps its bundle on the host
-            home = device if step == npix else "cpu"
-            key = geo_cache.bundle_key(
-                a, float(mu0), nup, uout, cfg.phi0,
-                cfg.standard, cfg.gridvals, nro, nphi, cfg.nrotype, cfg.rcut,
-                i1=cfg.i1, i2=cfg.i2)
-            path = gdfile if len(mus) == 1 else f"{gdfile}.mu{float(mu0):.6f}"
-            if mesh is None:
-                bundle = geo_cache.load_bundle(path, key, device=home)
-                # a bundle of the other precision is traced again
-                if bundle is None or bundle.x.shape[0] != npix \
-                        or bundle.x.dtype != _traced_dtype(cfg):
-                    parts = [trace_camera(cfg, cam, mu0,
-                                          slice(lo, lo + step))
-                             for lo in range(0, npix, step)]
-                    bundle = GeodesicBundle(*(
-                        torch.cat([getattr(g, f).to(home) for g in parts])
-                        for f in GeodesicBundle._fields))
-                    geo_cache.save_bundle(path, bundle, key)
-            else:
-                bundle = _mesh_bundle(cfg, cam, mu0, mesh, mine, path, key,
-                                      device)
-        # scan[i]: the pixel blocks of the i-th (time, mdot) render
-        scan = [[] for _ in range(cfg.nt * cfg.nmdot)]
-        for lo in range(0, npix, step):
-            blk = slice(lo, lo + step)
-            alpha, beta = cam.alpha[blk], cam.beta[blk]
-            if bundle is None:
-                geo = trace_camera(cfg, cam, mu0, blk)
-            else:
-                geo = GeodesicBundle(*(v[blk].to(device) for v in bundle))
-            if t0sh is not None:
-                t = geo.x[..., 0] - t0sh[blk, None].to(geo.x.dtype)
-                geo = geo._replace(x=torch.cat([t[..., None],
-                                                geo.x[..., 1:]], dim=-1))
-            # prec="mixed" samples the fluid in float32, as grtrans_tpu
-            # (its tables in float32 where the model keeps a float32 copy)
-            xs, ks = geo.x, geo.k
-            if cfg.prec == "mixed":
-                xs, ks = xs.float(), ks.float()
-            if not (timedep or slow_light):
-                fv = model.vals(xs, ks, a)
-            renders = iter(scan)
-            for it in range(cfg.nt):
-                if timedep or slow_light:
-                    fv = model.vals(xs, ks, a, time=it * cfg.dt)
-                for mdot in cfg.mdots():
-                    sp = _source_params(cfg, float(mdot))
-                    ei = model.convert(fv, sp)
-                    next(renders).append(driver.render_rays(
-                        geo, fv, ei, cfg.ename, freq_list, float(mu0), alpha,
-                        beta, a, cfg.mbh, sp, iname=cfg.iname,
-                        nvals=cfg.nvals, standard=cfg.standard,
-                        extra=cfg.extra, prec=cfg.prec))
-        ivals.extend(torch.cat(parts, dim=1) for parts in scan)
-    if mesh is not None:
-        whole = sharding.gather_pixels(mesh, torch.cat(ivals, dim=0), dim=1)
-        ivals = list(whole.split([iv.shape[0] for iv in ivals]))
-    if not device_output:
-        ivals = torch.cat(ivals, dim=0)
-    if verbose:
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        print(f"grtrans_run: {time.perf_counter() - t_start:.2f} s")
-    return ivals, ab, freqs
+            bundle = None
+            if gdfile is not None:
+                # a chunked camera keeps its bundle on the host
+                home = device if step == npix else "cpu"
+                key = geo_cache.bundle_key(
+                    a, float(mu0), nup, uout, cfg.phi0,
+                    cfg.standard, cfg.gridvals, nro, nphi, cfg.nrotype,
+                    cfg.rcut,
+                    i1=cfg.i1, i2=cfg.i2)
+                path = (gdfile if len(mus) == 1
+                        else f"{gdfile}.mu{float(mu0):.6f}")
+                if mesh is None:
+                    bundle = geo_cache.load_bundle(path, key, device=home)
+                    # a bundle of the other precision is traced again
+                    if bundle is None or bundle.x.shape[0] != npix \
+                            or bundle.x.dtype != _traced_dtype(cfg):
+                        parts = [trace_camera(cfg, cam, mu0,
+                                              slice(lo, lo + step))
+                                 for lo in range(0, npix, step)]
+                        bundle = GeodesicBundle(*(
+                            torch.cat([getattr(g, f).to(home) for g in parts])
+                            for f in GeodesicBundle._fields))
+                        geo_cache.save_bundle(path, bundle, key)
+                else:
+                    bundle = _mesh_bundle(cfg, cam, mu0, mesh, mine, path, key,
+                                          device)
+            # scan[i]: the pixel blocks of the i-th (time, mdot) render
+            scan = [[] for _ in range(cfg.nt * cfg.nmdot)]
+            for lo in range(0, npix, step):
+                blk = slice(lo, lo + step)
+                alpha, beta = cam.alpha[blk], cam.beta[blk]
+                if bundle is None:
+                    geo = trace_camera(cfg, cam, mu0, blk)
+                else:
+                    geo = GeodesicBundle(*(v[blk].to(device) for v in bundle))
+                if t0sh is not None:
+                    t = geo.x[..., 0] - t0sh[blk, None].to(geo.x.dtype)
+                    geo = geo._replace(x=torch.cat([t[..., None],
+                                                    geo.x[..., 1:]], dim=-1))
+                # prec="mixed" samples the fluid in float32, as grtrans_tpu
+                # (its tables in float32 where the model keeps a float32 copy)
+                xs, ks = geo.x, geo.k
+                if cfg.prec == "mixed":
+                    xs, ks = xs.float(), ks.float()
+                if not (timedep or slow_light):
+                    with obs.span("vals"):
+                        fv = model.vals(xs, ks, a)
+                renders = iter(scan)
+                for it in range(cfg.nt):
+                    if timedep or slow_light:
+                        with obs.span("vals"):
+                            fv = model.vals(xs, ks, a, time=it * cfg.dt)
+                    for mdot in cfg.mdots():
+                        sp = _source_params(cfg, float(mdot))
+                        with obs.span("convert"):
+                            ei = model.convert(fv, sp)
+                        next(renders).append(driver.render_rays(
+                            geo, fv, ei, cfg.ename, freq_list, float(mu0),
+                            alpha, beta, a, cfg.mbh, sp, iname=cfg.iname,
+                            nvals=cfg.nvals, standard=cfg.standard,
+                            extra=cfg.extra, prec=cfg.prec))
+            ivals.extend(torch.cat(parts, dim=1) for parts in scan)
+        if mesh is not None:
+            whole = sharding.gather_pixels(mesh, torch.cat(ivals, dim=0),
+                                           dim=1)
+            ivals = list(whole.split([iv.shape[0] for iv in ivals]))
+        if not device_output:
+            ivals = torch.cat(ivals, dim=0)
+        if verbose:
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            print(f"grtrans_run: {time.perf_counter() - t_start:.2f} s")
+        return ivals, ab, freqs
 
 
 def _mesh_bundle(cfg, cam, mu0, mesh, mine, path, key, device):
@@ -263,7 +273,10 @@ def _mesh_bundle(cfg, cam, mu0, mesh, mine, path, key, device):
     hit = torch.tensor([int(found is not None and found.x.shape[0] == npix
                             and found.x.dtype == _traced_dtype(cfg))],
                        device=device)
-    if sharding.all_reduce(mesh, hit, dist.ReduceOp.MIN).item():
+    hit = sharding.all_reduce(mesh, hit, dist.ReduceOp.MIN)
+    with obs.sync("_mesh_bundle"):
+        hit = hit.item()
+    if hit:
         return GeodesicBundle(*(v[mine].to(device) for v in found))
     bundle = trace_camera(cfg, cam, mu0)
     root = dist.get_global_rank(group, 0)

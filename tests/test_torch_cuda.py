@@ -17,9 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.ops import quad_gather as qg
 
 TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
+# the plain twins, whose calls a path on the card must not make
+TWINS = ("quad_gather_ref", "quad_gather_rows_ref", "quad_gather_bwd_w_ref",
+         "quad_gather_rows_bwd_w_ref")
 
 
 @pytest.fixture
@@ -44,11 +48,11 @@ def test_quad_gather_kernel_matches_plain(dev, dtype, ns, nc, nf, n):
                           device=dev)
     w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, nc)), dtype=dtype,
                         device=dev)
-    before = qg.quad_gather.launches
+    before = obs.counters()["quad_gather.launches"]
     out = qg.quad_gather(table, idx, w, nc, nf)
     ref = qg.quad_gather_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
-    assert qg.quad_gather.launches == before + 1
+    assert obs.counters()["quad_gather.launches"] == before + 1
     assert qg.error_flag(dev).item() == 0
     assert out.shape == (n, nf) and out.dtype == dtype
     err = (out - ref).abs().max().item()
@@ -104,17 +108,17 @@ def test_quad_gather_at_the_phatdisk_shape(dev, n):
                           device=dev)
     wgt = torch.as_tensor(rng.uniform(0.0, 1.0, n), device=dev)
     w = torch.stack([1 - wgt, wgt], dim=-1)
-    before = qg.quad_gather.launches
+    before = obs.counters()["quad_gather.launches"]
     out = qg.quad_gather(table, idx, w, 2, 101)
     ref = qg.quad_gather_ref(table, idx, w, 2, 101)
     torch.cuda.synchronize()
-    assert qg.quad_gather.launches == before + 1
+    assert obs.counters()["quad_gather.launches"] == before + 1
     assert qg.error_flag(dev).item() == 0
     assert out.shape == (n, 101)
     assert (out - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
-    wide = qg.quad_gather.launches_by_kernel["wide"]
+    wide = obs.counters()["quad_gather.launches.wide"]
     forced = qg.quad_gather(table, idx, w, 2, 101, generic=True)
-    assert qg.quad_gather.launches_by_kernel["wide"] == wide
+    assert obs.counters()["quad_gather.launches.wide"] == wide
     assert (forced - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
 
 
@@ -131,10 +135,10 @@ def test_phatdisk_vals_on_the_card_match_the_cpu(dev):
     x[..., 1] = 10.0 ** rng.uniform(np.log10(1.5), 3.9, (4096, 1))
     x[..., 2] = np.pi / 2
     k = rng.normal(size=x.shape)
-    before = qg.quad_gather.launches
+    before = obs.counters()["quad_gather.launches"]
     got = on_card.vals(torch.as_tensor(x, device=dev),
                        torch.as_tensor(k, device=dev), 0.9)
-    assert qg.quad_gather.launches == before + 1
+    assert obs.counters()["quad_gather.launches"] == before + 1
     want = on_cpu.vals(torch.from_numpy(x), torch.from_numpy(k), 0.9)
     assert got.fnu.shape == (4096, 1, 100) and got.fnu.device.type == "cuda"
     for field in ("fnu", "u", "b"):
@@ -159,11 +163,11 @@ def test_wide_row_kernel_matches_plain(dev, dtype, nc, nf):
                           device=dev)
     w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, nc)), dtype=dtype,
                         device=dev)
-    before = qg.quad_gather.launches_by_kernel["wide"]
+    before = obs.counters()["quad_gather.launches.wide"]
     out = qg.quad_gather(table, idx, w, nc, nf)
     ref = qg.quad_gather_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
-    assert qg.quad_gather.launches_by_kernel["wide"] == before + 1
+    assert obs.counters()["quad_gather.launches.wide"] == before + 1
     assert qg.error_flag(dev).item() == 0
     assert (out - ref).abs().max().item() <= TOL[dtype] * \
         ref.abs().max().item()
@@ -199,13 +203,13 @@ def test_quad_gather_rows_kernel_matches_plain(dev, dtype, r, nc, nf, n):
                           device=dev)
     w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, r, nc)), dtype=dtype,
                         device=dev)
-    before = qg.quad_gather_rows.launches
-    simple = qg.quad_gather_rows.launches_by_kernel["simple"]
+    before = obs.counters()["quad_gather_rows.launches"]
+    simple = obs.counters()["quad_gather_rows.launches.simple"]
     out = qg.quad_gather_rows(table, idx, w, nc, nf, simple=True)
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
-    assert qg.quad_gather_rows.launches == before + 1
-    assert qg.quad_gather_rows.launches_by_kernel["simple"] == simple + 1
+    assert obs.counters()["quad_gather_rows.launches"] == before + 1
+    assert obs.counters()["quad_gather_rows.launches.simple"] == simple + 1
     assert qg.error_flag(dev).item() == 0
     assert out.shape == (n, nf) and out.dtype == dtype
     assert (out - ref).abs().max().item() <= TOL[dtype] * \
@@ -283,11 +287,11 @@ def test_quad_gather_rows_tiled_kernel_matches_plain(dev, dtype, r, nc, nf,
     128 / R queries and against its persistent grid."""
     table, idx, w = _rows_inputs(dev, dtype, n, r, nc, nf)
     assert qg.rows_kernel(r, nc, nf, table.element_size(), True) == "tiled"
-    before = qg.quad_gather_rows.launches_by_kernel["tiled"]
+    before = obs.counters()["quad_gather_rows.launches.tiled"]
     out = qg.quad_gather_rows(table, idx, w, nc, nf, dedup=dedup)
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
-    assert qg.quad_gather_rows.launches_by_kernel["tiled"] == before + 1
+    assert obs.counters()["quad_gather_rows.launches.tiled"] == before + 1
     assert qg.error_flag(dev).item() == 0
     _rows_close(out, ref, dtype)
 
@@ -378,13 +382,15 @@ def test_quad_gather_rows_picks_the_simple_kernel(dev, case):
         flat = torch.cat([table.new_zeros(1), table.reshape(-1)])
         table = flat[1:].view(table.shape)
         assert table.data_ptr() % 16 == 8 and table.is_contiguous()
-    before = dict(qg.quad_gather_rows.launches_by_kernel)
+    before = obs.counters()
     out = qg.quad_gather_rows(table, idx, w, nc, nf)
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
-    after = qg.quad_gather_rows.launches_by_kernel
-    assert after["simple"] == before.get("simple", 0) + 1
-    assert after["tiled"] == before.get("tiled", 0)
+    after = obs.counters()
+    assert after["quad_gather_rows.launches.simple"] == \
+        before["quad_gather_rows.launches.simple"] + 1
+    assert after["quad_gather_rows.launches.tiled"] == \
+        before["quad_gather_rows.launches.tiled"]
     _rows_close(out, ref, dtype)
 
 
@@ -408,11 +414,11 @@ def test_quad_gather_tiled_kernel_at_the_2d_table_shapes(dev, dtype, ns, nc,
                           device=dev)
     w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, nc)), dtype=dtype,
                         device=dev)
-    before = qg.quad_gather.launches_by_kernel["tiled"]
+    before = obs.counters()["quad_gather.launches.tiled"]
     out = qg.quad_gather(table, idx, w, nc, nf)
     ref = qg.quad_gather_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
-    assert qg.quad_gather.launches_by_kernel["tiled"] == before + 1
+    assert obs.counters()["quad_gather.launches.tiled"] == before + 1
     assert qg.error_flag(dev).item() == 0
     scale = ref.abs().max().item()
     assert (out - ref).abs().max().item() <= TOL[dtype] * scale
@@ -448,9 +454,9 @@ def test_cli_on_the_card_writes_the_render(dev, tmp_path):
     from grtrans_tpu_torch.io.binio import read_camera_bin
 
     cfg = _flagship_files(tmp_path)
-    before = qg.quad_gather.launches
+    before = obs.counters()["quad_gather.launches"]
     assert main([str(tmp_path / "files.in")]) == 0
-    assert qg.quad_gather.launches > before
+    assert obs.counters()["quad_gather.launches"] > before
     x = Grtrans()
     x.cfg = cfg
     x.run(device="cuda")
@@ -492,10 +498,10 @@ def test_pgriter_through_a_loaded_snapshot_on_the_card(dev):
     model = load_fluid_model("HARM3D", device=dev,
                              dump=grmhd_dump.harm3d_dump(32, 24, 16))
     target, _ = pgriter.flux_at(cfg, 6e15, model=model, device=dev)
-    before = qg.quad_gather_rows.launches
+    before = obs.counters()["quad_gather_rows.launches"]
     fitted, flux, hist = pgriter.fit_flux(cfg, target, 4e15, model=model,
                                           device=dev)
-    assert qg.quad_gather_rows.launches - before == len(hist)
+    assert obs.counters()["quad_gather_rows.launches"] - before == len(hist)
     assert abs(np.log(flux / target)) < 1e-3
     assert abs(np.log(fitted / 6e15)) < 0.05
 
@@ -527,16 +533,17 @@ def _picked(r, nc, nf, dtype, aligned=True):
 
 def _check_bwd(table, idx, g, nc, nf, kernel, forced=False):
     """One launch of the backward against its twin (TOL of max|twin|,
-    widened for long rows), on the kernel `kernel` by launches_by_kernel,
+    widened for long rows), on the kernel `kernel` by its launch count,
     bitwise repeated from run to run.  Returns (dw, twin)."""
     r = idx.shape[1] if idx.dim() == 2 else None
     kern, twin, force, _ = _bwd(r)
     kw = {force: True} if forced else {}
-    before = kern.launches_by_kernel[kernel]
+    launches = f"{kern.__name__}.launches.{kernel}"
+    before = obs.counters()[launches]
     out = kern(table, idx, g, nc, nf, **kw)
     ref = twin(table, idx, g, nc, nf)
     torch.cuda.synchronize()
-    assert kern.launches_by_kernel[kernel] == before + 1
+    assert obs.counters()[launches] == before + 1
     assert qg.error_flag(table.device).item() == 0
     assert out.shape == idx.shape + (nc,) and out.dtype == table.dtype
     assert (out - ref).abs().max().item() <= TOL[table.dtype] * \
@@ -682,20 +689,18 @@ def test_gather_gradients_on_the_card(dev, rows):
     for where in ("cpu", dev):
         wt = w.to(where).clone().requires_grad_()
         out = fwd(table.to(where), idx.to(where), wt, nc, nf)
-        calls = qg.quad_gather_ref.calls + qg.quad_gather_rows_ref.calls \
-            + qg.quad_gather_bwd_w_ref.calls \
-            + qg.quad_gather_rows_bwd_w_ref.calls
-        launches = bwd.launches
-        by_kernel = dict(bwd.launches_by_kernel)
+        before = obs.counters()
         out.backward(g.to(where))
         grads[str(where)] = wt.grad.cpu()
         if where == dev:
-            assert bwd.launches == launches + 1
-            assert bwd.launches_by_kernel[picked] == \
-                by_kernel.get(picked, 0) + 1
-            assert qg.quad_gather_ref.calls + qg.quad_gather_rows_ref.calls \
-                + qg.quad_gather_bwd_w_ref.calls \
-                + qg.quad_gather_rows_bwd_w_ref.calls == calls
+            after = obs.counters()
+            name = bwd.__name__
+            assert after[f"{name}.launches"] == \
+                before[f"{name}.launches"] + 1
+            assert after[f"{name}.launches.{picked}"] == \
+                before[f"{name}.launches.{picked}"] + 1
+            assert sum(after[f"{t}.calls"] for t in TWINS) == \
+                sum(before[f"{t}.calls"] for t in TWINS)
     torch.testing.assert_close(grads[str(dev)], grads["cpu"], rtol=1e-14,
                                atol=1e-14)
     bad = idx.to(dev).clone()

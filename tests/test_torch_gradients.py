@@ -48,7 +48,7 @@ from grtrans_tpu.fluid.base import load_fluid_model as jload
 from grtrans_tpu.geodesics import camera as jcam
 from grtrans_tpu.geodesics import geokerr as jgeo
 from grtrans_tpu.integrate import solvers as jsol
-from grtrans_tpu_torch import driver
+from grtrans_tpu_torch import driver, obs
 from grtrans_tpu_torch.fluid.base import SourceParams, load_fluid_model
 from grtrans_tpu_torch.geodesics import camera, geokerr
 from grtrans_tpu_torch.integrate import solvers
@@ -358,9 +358,9 @@ def test_gradients_flow_through_the_table_samplers(tmp_path):
         if prob is harm3d:
             # the snapshot holds one spin: its gradient is mu0's alone
             p = {"spin": f64(spin), "mu0": p["mu0"]}
-        before = bwd.calls
+        before = obs.counters()[f"{bwd.__name__}.calls"]
         loss(p).backward()
-        assert bwd.calls > before
+        assert obs.counters()[f"{bwd.__name__}.calls"] > before
         for k, v in p.items():
             if not v.requires_grad:
                 continue
