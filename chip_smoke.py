@@ -4,7 +4,8 @@
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit; TF32 off;
-  2. build the hand-written kernels of csrc/quad_gather.cu for sm_90a;
+  2. build the hand-written kernels of csrc/formal_march.cu and
+     csrc/quad_gather.cu for sm_90a (ptxas's registers and spills);
   3. hold quad_gather against its plain PyTorch version on the card at the
      main paths' shapes (FFJET 4e6 queries x (16384, 36) table in f64 and
      f32; the POLSYNCHPL cutoff table (201, 12); PHATDISK's pair-packed
@@ -159,7 +160,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      kernel, no twin); the mu0 gradients of THICKDISK, MB09, KORAL and
      KORAL3D (tests/test_torch_gradient_zoo.py's set-up) on the card,
      finite, within 1e-2 of central differences there and within 1e-3 of
-     the CPU's.
+     the CPU's;
+ 28. the Stokes march kernel (csrc/formal_march.cu) on the benchmark's
+     frame: the FFJET flagship camera at 256x256 x 400, lsoda, float64 and
+     prec="mixed", through grtrans_run, each render's march operands kept:
+     one kernel launch a render (f64 / f32) and no twin call; the frame
+     again with the torch march in the kernel's place, the two images
+     compared (MARCH_TOL: f64 1e-9 of max|I|, the benchmark's limit;
+     f32 4e-5, float32 rounding's with room) and the device
+     memory's peak read before, inside and after each march; then the
+     kernel and the torch march timed with CUDA events on the kept
+     operands, their difference, and the kernel's bound: the bytes its
+     unmasked cells touch over the memory rate against its float64 (f32)
+     operations, estimated from the source, over the unfused rate.
 The line before the last is a JSON object of the kernels, the float32
 instantiations of the mixed paths among them (and of the gradient and
 mixed paths; no NaN token: a non-finite number is null); the last line is
@@ -319,6 +332,153 @@ WRAPPERS = ("quad_gather", "quad_gather_rows", "quad_gather_bwd_w",
             "quad_gather_rows_bwd_w")
 
 
+MARCH_NN = (256, 256, 400)            # the benchmark's frames
+# operations of one substep on the march kernel's common path
+# (non-degenerate matricant, Taylor emission), an estimate from its source,
+# not a count: ~500 adds and multiplies besides exp x 3, expm1, sincos,
+# sqrt x 3 and 3 divides, each taken as the ~25 instructions of its
+# software sequence
+MARCH_OPS_PER_SUBSTEP = 750
+# kernel against twin, of max|I|: (on the same operands, the frame's
+# image); f64: 1e-12 and the benchmark's image_err limit; f32: the bar of
+# tests/test_torch_march_kernel.py, about ten times the largest reading
+# (3.7e-6 on this frame), both sides doing the same float32 arithmetic
+MARCH_TOL = {"f64": (1e-12, 1e-9), "f32": (4e-5, 4e-5)}
+
+
+def march_bound_ms(lam, cell_ok, substeps, mixed):
+    """Least time of one march kernel launch: the bytes of the samples its
+    unmasked cells touch (lam, j, K), the mask, the float64 steps of the
+    mixed leg and the output over the memory rate, against the estimated
+    MARCH_OPS_PER_SUBSTEP a substep of an unmasked cell over the rate of
+    unfused operations in the march's dtype: half PEAK_FLOPS, which counts
+    a fused multiply-add as two, while the kernel is built with
+    -fmad=false.  Returns (ms, "bytes" or "operations", bytes,
+    operations)."""
+    size = lam.element_size()
+    touched = torch.zeros_like(lam, dtype=torch.bool)
+    touched[:, :-1] |= cell_ok
+    touched[:, 1:] |= cell_ok
+    cells = cell_ok.sum().item()
+    nbytes = (touched.sum().item() * 12 * size + cell_ok.numel()
+              + (8 * cells if mixed else 0) + lam.shape[0] * 4 * size)
+    ops = cells * substeps * MARCH_OPS_PER_SUBSTEP
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (PEAK_FLOPS[lam.dtype] / 2) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def march_row(name):
+    return "ffjet {}x{}x{} lsoda {}".format(*MARCH_NN, name)
+
+
+def march_phase(dev):
+    """Phase 28: the march kernel on the benchmark's flagship frame."""
+    from grtrans_tpu_torch import convert
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid import ffjet
+    from grtrans_tpu_torch.integrate import solvers
+    from grtrans_tpu_torch.ops import formal_march as fm
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
+
+    kernel_march = solvers._kernel_march
+
+    def frame(cfg, model, march):
+        """One render with `march` in the kernel's place; its image, the
+        obs counters it moved, the march operands and the peaks (GiB): of
+        the frame before the march, inside the march, after it."""
+        kept, peaks = [], {}
+
+        def spy(*args):
+            kept.append(args)
+            torch.cuda.synchronize()
+            peaks["before"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = march(*args)
+            torch.cuda.synchronize()
+            peaks["march"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            return out
+
+        solvers._kernel_march = spy
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = obs.counters()
+            ivals, _, _ = grtrans_run(cfg, model, device=dev)
+            torch.cuda.synchronize()
+            counts = obs.counters()
+            counts.subtract(before)
+            peaks["after"] = torch.cuda.max_memory_allocated(dev)
+        finally:
+            solvers._kernel_march = kernel_march
+        return (ivals, counts, kept[0],
+                {k: v / 2 ** 30 for k, v in peaks.items()})
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dfile = Path(tmp) / "ffjet.bin"
+        write_ffjet_dump(dfile, nx=FFJET_NX, seed=SEED)
+        model = convert.ffjet_from_arrays(*ffjet.load_ffjet_file(dfile),
+                                          dev)
+        base = flagship_config(GrtransConfig, dfile, MARCH_NN)
+        for prec in ("f64", "mixed"):
+            cfg = dataclasses.replace(base, iname="lsoda", prec=prec)
+            grtrans_run(cfg, model, device=dev)          # warm
+            ivals, counts, args, peaks = frame(cfg, model, kernel_march)
+            name = "f32" if prec == "mixed" else "f64"
+            if counts[f"march.kernel.launches.{name}"] != 1 or \
+                    counts["march.kernel.launches"] != 1 or \
+                    counts["march.twin.calls"] != 0:
+                raise AssertionError(f"march {prec}: kernel launches "
+                                     f"{counts['march.kernel.launches']}, "
+                                     f"twin calls "
+                                     f"{counts['march.twin.calls']}")
+            twin_img, tcounts, _, twin_peaks = frame(
+                cfg, model, lambda *a: solvers._twin_march(*a))
+            if tcounts["march.twin.calls"] != 1:
+                raise AssertionError("the twin frame took no twin")
+            imax = twin_img[..., 0].abs().max().item()
+            img_err = (ivals - twin_img).abs().max().item() / imax
+            lam, j, K, cell_ok, I0, substeps, dlam64 = args
+
+            def kernel():
+                return fm.formal_march(lam, j, K, cell_ok, None, substeps,
+                                       dlam64)
+
+            def twin():
+                return solvers._twin_march(*args)
+
+            out, ref = kernel(), twin()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item() / ref[:, 0].abs().max().item()
+            bound, bound_by, nbytes, ops = march_bound_ms(
+                lam, cell_ok, substeps, prec == "mixed")
+            t = dict(kernel=cuda_ms(kernel, reps=5), plain=cuda_ms(twin, 1),
+                     kernel_again=cuda_ms(kernel, reps=5))
+            ms = min(t["kernel"], t["kernel_again"])
+            rows[march_row(name)] = dict(
+                ms=ms, plain_ms=t["plain"], bound_ms=bound,
+                bound_by=bound_by, bytes=nbytes, ops=ops,
+                share=bound / ms, max_rel_err=err, image_rel_err=img_err,
+                cells=cell_ok.sum().item(), peaks_gib=peaks,
+                twin_peaks_gib=twin_peaks, times=t)
+            print(f"march {name} {MARCH_NN}: kernel {ms:.3f} ms "
+                  f"({t['kernel']:.3f}, {t['kernel_again']:.3f}), torch "
+                  f"march {t['plain']:.1f} ms, bound {bound:.3f} ms by "
+                  f"{bound_by} ({nbytes / 1e9:.3f} GB, {ops:.3e} ops "
+                  f"estimated), "
+                  f"share {bound / ms:.1%}; kernel vs twin {err:.3e} of "
+                  f"max|I|, image {img_err:.3e}; peaks GiB kernel {peaks}, "
+                  f"twin {twin_peaks}")
+            tol = MARCH_TOL[name]
+            if not (img_err <= tol[1] and err <= tol[0]):
+                raise AssertionError(f"march {name}: kernel vs twin {err}, "
+                                     f"image {img_err}")
+    return rows
+
+
 def reset_counts():
     """Count the gather launches and twin calls from here on (the obs
     counters as they stand are the base)."""
@@ -342,7 +502,9 @@ def read_counts():
                   bwd_generic=c["quad_gather_bwd_w.launches.generic"],
                   rows_bwd_tiled=c["quad_gather_rows_bwd_w.launches.tiled"],
                   rows_bwd_simple=c["quad_gather_rows_bwd_w.launches.simple"],
-                  twin_calls=sum(c[f"{name}.calls"] for name in TWINS))
+                  twin_calls=sum(c[f"{name}.calls"] for name in TWINS),
+                  march_kernel=c["march.kernel.launches"],
+                  march_twin=c["march.twin.calls"])
     for name in WRAPPERS:
         counts[name] = c[f"{name}.launches"]
         for dt in ("f32", "f64"):
@@ -2369,6 +2531,23 @@ def by_path(paths, key):
     return {name: c[key] for name, c in paths.items()}
 
 
+def build_phase():
+    """Phase 2: build and load csrc/formal_march.cu and csrc/quad_gather.cu;
+    print ptxas's registers and spills."""
+    from grtrans_tpu_torch.ops import _build
+    from grtrans_tpu_torch.ops import formal_march as fm
+    from grtrans_tpu_torch.ops import quad_gather as qg
+
+    for mod, flags in ((fm, fm.NVCC_FLAGS), (qg, ())):
+        t0 = time.perf_counter()
+        mod.load_library()
+        so = _build.library_path(mod.SOURCE, flags)
+        print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
 def run(dev):
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from grtrans_tpu_torch.ops import quad_gather as qg
@@ -2384,13 +2563,7 @@ def run(dev):
           f"{torch.cuda.get_device_name(0)}")
 
     # 2. build
-    t0 = time.perf_counter()
-    so = qg.build()
-    qg.load_library()
-    print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_phase()
 
     # 3. kernel vs plain at the main paths' shapes
     shapes = {}
@@ -2462,6 +2635,9 @@ def run(dev):
     bwd_streams = bwd_stream_phase(qg, streams)
     del streams
     mixed_paths = ("mixed_ffjet", "mixed_harm3d", "mixed_grad_ffjet")
+    # 28. the march kernel
+    march = march_phase(dev)
+    march64 = march[march_row("f64")]
 
     main = shapes["ffjet f64"]
     wide = shapes["phatdisk f64"]
@@ -2537,7 +2713,17 @@ def run(dev):
                 ("quad_gather", "grtrans_tpu/ops/pallas_gather.py:49",
                  mixed_frame),
                 ("quad_gather_rows", "grtrans_tpu/fluid/grmhd3d.py:212",
-                 mixed_rows))],
+                 mixed_rows))]
+        + [{
+        "name": "formal_march", "route": "cuda",
+        "source": "grtrans_tpu_torch/csrc/formal_march.cu",
+        "replaces": "grtrans_tpu/integrate/solvers.py:532",
+        "launches": sum(by_path(paths, "march_kernel").values()),
+        "launches_by_path": by_path(paths, "march_kernel"),
+        "twin_calls_by_path": by_path(paths, "march_twin"),
+        "max_abs_err": march64["max_rel_err"], "ms": march64["ms"],
+        "plain_ms": march64["plain_ms"], "bound_ms": march64["bound_ms"],
+        "bound_by": march64["bound_by"], "shapes": march}],
         "gradient_paths": {"fwdbwd_ffjet": fwdbwd,
                            "grad_harm3d": grad_harm3d,
                            "emitter_observer": emitter},

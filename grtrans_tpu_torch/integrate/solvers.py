@@ -11,7 +11,9 @@ matrix (Landi Degl'Innocenti 1985) in overflow-safe form and p the exact
 linear-in-j emission.  One march serves them all: it builds the maps of
 BLK cells at a time, far end first, and either composes the block and
 applies it to the running Stokes vector (observer only) or applies the
-cells one by one and records the profile.
+cells one by one and records the profile.  On the card, the formal
+solver's observer-only march with no gradient recorded is one CUDA kernel
+(ops/formal_march.py); the torch march is its twin and serves the rest.
 
 Layout: 4x4 matrices are (4, 4, *batch) with the batch trailing; public
 arrays are (npix, npts, ...) ordered along the trace (index 0 = observer).
@@ -24,6 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from grtrans_tpu_torch import obs
+from grtrans_tpu_torch.ops import formal_march
 
 MAX_TAU = 10.0
 THIN = 1e-2    # DELO: cells shallower than this take the Taylor branch
@@ -395,10 +398,14 @@ def _march(maps, cell_ok, I, profile, recompute=False):
     step runs under torch.utils.checkpoint, so that the backward pass
     holds one block's intermediates at a time and recomputes them from
     the block's inputs, as grtrans_tpu wraps its block step in
-    jax.checkpoint (integrate/solvers.py:600-605, :622)."""
+    jax.checkpoint (integrate/solvers.py:600-605, :622).
+
+    Counts "march.twin.calls" and, as the kernel march does,
+    "march.blocks": the cells marched in units of BLK, ceil(ncell / BLK)."""
     ncell = cell_ok.shape[-1]
     cell_ok = _far_first(cell_ok, _pad(ncell))
     nblocks = cell_ok.shape[-1] // BLK
+    obs.count("march.twin.calls")
     obs.count("march.blocks", nblocks)
     I_far = I
     rows = []
@@ -511,20 +518,54 @@ def formal_solve(lam, j, K, mask=None, max_tau=MAX_TAU, I0=None, substeps=1,
     float32 coefficients with a float64 lam (prec="mixed") march in
     float32: the cells' affine parameter steps are those of lam rounded
     to float32, and each cell's Faraday phase is formed from the float64
-    step (_calc_O's dx64), as grtrans_tpu's formal_solve does."""
+    step (_calc_O's dx64), as grtrans_tpu's formal_solve does.
+
+    With profile=False, on the card and with no gradient recorded, in
+    float64 or mixed, the march is one CUDA kernel (_kernel_march); the
+    torch march (_march) takes every other call."""
     j, K = passivity_clamp(j, K)
     mixed = j.dtype == torch.float32 and lam.dtype == torch.float64
     dlam64 = lam[..., 1:] - lam[..., :-1] if mixed else None
     if mixed:
         lam = lam.to(j.dtype)
+    _, cell_ok = _cell_tau_mask(lam, K, mask, max_tau)
+    grad = _needs_grad(lam, j, K, I0 if torch.is_tensor(I0) else None)
+    if (not profile and not grad and j.is_cuda
+            and lam.dtype == j.dtype == K.dtype
+            and (j.dtype == torch.float64 or mixed)):
+        return _kernel_march(lam, j, K, cell_ok, I0, substeps, dlam64)
+    return _twin_march(lam, j, K, cell_ok, I0, substeps, dlam64, profile,
+                       grad)
+
+
+def _twin_march(lam, j, K, cell_ok, I0, substeps, dlam64, profile=False,
+                recompute=False):
+    """The torch march (_march, _formal_maps) of formal_solve's clamped
+    coefficients: the kernel's twin, and the path of every call that the
+    kernel does not take."""
     a = tuple(K[..., 0:4].movedim(-1, 0))
     rho = tuple(K[..., 4:7].movedim(-1, 0))
     jc = j.movedim(-1, 0)[:, None]                       # (4,1,npix,npts)
     dlam = lam[..., 1:] - lam[..., :-1]                  # (npix, ncell)
-    _, cell_ok = _cell_tau_mask(lam, K, mask, max_tau)
     return _march(_formal_maps(a, rho, jc, dlam, substeps, dlam64), cell_ok,
-                  _initial_stokes(I0, lam.shape[0], j), profile,
-                  _needs_grad(lam, j, K, I0 if torch.is_tensor(I0) else None))
+                  _initial_stokes(I0, lam.shape[0], j), profile, recompute)
+
+
+def _kernel_march(lam, j, K, cell_ok, I0, substeps, dlam64):
+    """The observer's (npix, 4) from the march kernel
+    (ops/formal_march.py), on formal_solve's clamped coefficients; the
+    span "march" around the launch and "march.blocks" counted as _march
+    counts them."""
+    npix = lam.shape[0]
+    nblocks = -(-cell_ok.shape[-1] // BLK)
+    obs.count("march.blocks", nblocks)
+    if I0 is not None:
+        I0 = torch.as_tensor(I0, dtype=j.dtype, device=j.device)
+        I0 = torch.atleast_2d(I0).expand(npix, 4).contiguous()
+    with obs.span("march", blocks=nblocks):
+        return formal_march.formal_march(
+            lam.contiguous(), j.contiguous(), K.contiguous(),
+            cell_ok.contiguous(), I0, substeps, dlam64)
 
 
 def _delo_cells(j0, j1, K0, K1, aI0, aI1, dlam, thin):

@@ -52,9 +52,9 @@ for rows.  `bwd_kernel` / `rows_bwd_kernel` pick; `generic=True` /
 each other.
 
 The library is compiled with nvcc on first use into
-grtrans_tpu_torch/_build/, keyed by a hash of its source, and bound with
-ctypes (the set-up span "setup.kernels"; the counter "kernel_builds"
-counts nvcc runs).  Each of the four wrappers is the span "gather" and
+grtrans_tpu_torch/_build/ (ops/_build, keyed by a hash of its source and
+flags) and bound with ctypes (the set-up span "setup.kernels"; the counter
+"kernel_builds" counts nvcc runs).  Each of the four wrappers is the span "gather" and
 counts its queries ("gather.queries") and, in the obs counters, its
 kernel launches ("<wrapper>.launches"), split by kernel
 ("<wrapper>.launches.tiled", ...) and by instantiation
@@ -64,22 +64,16 @@ the card reached them.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from grtrans_tpu_torch import obs
+from grtrans_tpu_torch.ops import _build
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "quad_gather.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
 _lib = None
 _err_flags = {}
@@ -449,47 +443,6 @@ def _launch(table, idx, w, nc, nf, generic):
     return out
 
 
-def _nvcc():
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is not None:
-        path = Path(CUDA_HOME) / "bin" / "nvcc"
-        if path.exists():
-            return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def library_path(source=SOURCE):
-    """Path of the compiled kernel library for the current source (or
-    another version of it, `source`)."""
-    digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libquad_gather_{digest}.so"
-
-
-def build(source=SOURCE):
-    """Compile csrc/quad_gather.cu (or another version of it, `source`,
-    for scripts/kernel_ab.py) for sm_90a unless the library for this
-    source exists.  Returns the library path; the compiler's output
-    (ptxas register and spill report) is kept beside it as a .log."""
-    so = library_path(source)
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    obs.count("kernel_builds")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # the C interface's argument types, by function (the _f32 and _f64 alike):
 # table, idx, x, out, err, then the sizes, the variant and the stream
@@ -517,6 +470,6 @@ def load_library():
     global _lib
     if _lib is None:
         with obs.setup("kernels") as rec:
-            rec.attrs["built"] = not library_path().exists()
-            _lib = bind(ctypes.CDLL(str(build())))
+            rec.attrs["built"] = not _build.library_path(SOURCE).exists()
+            _lib = bind(ctypes.CDLL(str(_build.build(SOURCE))))
     return _lib

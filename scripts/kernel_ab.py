@@ -4,7 +4,7 @@ each other on one NVIDIA card.
     git show REV:grtrans_tpu_torch/csrc/quad_gather.cu > base.cu
     python3 scripts/kernel_ab.py --base base.cu [--reps 20] [--json out.json]
 
-Both sources are built with the port's nvcc flags (ops/quad_gather.build)
+Both sources are built with the port's nvcc flags (ops/_build.build)
 and loaded side by side.  Each forward kernel the port's render paths run
 (tiled quad_gather at FFJET 4x9 f64 / f32, POLSYNCHPL 2x6, HARM 4x10,
 KORAL 4x11; tiled quad_gather_rows at the snapshot's R = 4 of 2x10 in f64
@@ -27,6 +27,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from grtrans_tpu_torch.ops import _build  # noqa: E402
 from grtrans_tpu_torch.ops import quad_gather as qg  # noqa: E402
 
 N = 4_000_000
@@ -91,7 +92,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    libs = {"base": qg.bind(ctypes.CDLL(str(qg.build(args.base))),
+    libs = {"base": qg.bind(ctypes.CDLL(str(_build.build(args.base))),
                             ("quad_gather", "quad_gather_rows")),
             "new": qg.load_library()}
     dev = torch.device("cuda", 0)
