@@ -4,8 +4,9 @@
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit; TF32 off;
-  2. build the hand-written kernels of csrc/formal_march.cu and
-     csrc/quad_gather.cu for sm_90a (ptxas's registers and spills);
+  2. build the hand-written kernels of csrc/formal_march.cu,
+     csrc/quad_gather.cu and csrc/harmpi_invert.cu for sm_90a (ptxas's
+     registers and spills);
   3. hold quad_gather against its plain PyTorch version on the card at the
      main paths' shapes (FFJET 4e6 queries x (16384, 36) table in f64 and
      f32; the POLSYNCHPL cutoff table (201, 12); PHATDISK's pair-packed
@@ -172,7 +173,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      kernel and the torch march timed with CUDA events on the kept
      operands, their difference, and the kernel's bound: the bytes its
      unmasked cells touch over the memory rate against its float64 (f32)
-     operations, estimated from the source, over the unfused rate.
+     operations, estimated from the source, over the unfused rate;
+ 29. HARMPI's inversion kernels (csrc/harmpi_invert.cu) on the benchmark's
+     frame: the samples of a 256x256 x 400 HARMPI BL = 3 camera at the
+     benchmark cell's spin, uout and field of view (two kernel launches,
+     no twin call), inverted on the benchmark's jetcoords grid by the
+     kernels and by their torch twins, in float64 and in float32
+     (prec="mixed"); x1 and x2 compared (INVERT_TOL), their zones on the
+     benchmark's 288 x 128 grid compared (none may differ); then kernels
+     and twins timed with CUDA events, beside the kernels' bound: their
+     bytes over the memory rate against their operations over the unfused
+     rate, the operations estimated from the source (INVERT_OPS) for the
+     steps, band and branches that a replay of the frame's bisections
+     counts.
 The line before the last is a JSON object of the kernels, the float32
 instantiations of the mixed paths among them (and of the gradient and
 mixed paths; no NaN token: a non-finite number is null); the last line is
@@ -479,6 +492,197 @@ def march_phase(dev):
     return rows
 
 
+INVERT_NN = (256, 256, 400)           # the benchmark's HARMPI frame
+# FP operations of the inversion kernels, counted from
+# csrc/harmpi_invert.cu's source, with a transcendental function taken as
+# the ~25 instructions of its software sequence and a division as ~10 (its
+# reciprocal and Newton steps): estimates, not counts.  The number of each
+# event (steps before the exit, steps above xbr, on the ftr band, with a
+# quotient in thetaofx2) is counted by invert_work on the frame's samples.
+TRANS, DIV = 25, 10
+INVERT_OPS = dict(
+    x1_step=TRANS + 7,          # mid, exp, + R0, the tests
+    x1_above=2 * TRANS + 3,     # the power above xbr
+    x2_step=2 * TRANS + 19,     # mid, fac's argument, tan, one atan, tests
+    x2_outer=DIV,               # |mid| > 0.5: the side's quotient
+    x2_band=4 * TRANS + 19,     # ftr's cos and two sin, the other side,
+                                # the blend
+    x2_band_outer=DIV,          # the other side's quotient
+    # once a sample: two ror0nu, each two mins (three sin), a quotient and
+    # the grid's powers (nu1 = -2 a reciprocal, nu2 = 0.75 a power)
+    sample=2 * (8 * TRANS + 44 + 2 * DIV))
+# r, th read and x1, x2 written, with r read by both kernels
+INVERT_OPERANDS_PER_SAMPLE = 5
+# x1, x2: kernels against twins, tests/test_torch_harmpi_invert.py's bars
+INVERT_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def invert_work(th, r, p, iters=60):
+    """Replay the inversion kernels' bisections (csrc/harmpi_invert.cu) in
+    torch on the samples, and count the events INVERT_OPS prices: each
+    sample's steps up to its exit (mid equal to lo or hi), x1's above xbr,
+    x2's on the ftr band (0 < fac < 1, where both sides of the blend are
+    computed; r is finite and positive here, so nowhere else) and with
+    |mid| > 0.5 (thetaofx2's quotient)."""
+    from grtrans_tpu_torch.fluid import harmpi
+
+    band_w = (1 - p.fracjet) - p.fracdisk
+
+    def replay(f, target, lo, hi, events):
+        lo = torch.full_like(target, lo)
+        hi = torch.full_like(target, hi)
+        live = torch.ones_like(target, dtype=torch.bool)
+        n = dict.fromkeys(["steps", *events], 0)
+        for _ in range(iters):
+            mid = 0.5 * (lo + hi)
+            n["steps"] += live.sum()
+            for name, mask in events.items():
+                n[name] += (live & mask(mid)).sum()
+            big = f(mid) > target
+            last = (mid == lo) | (mid == hi)
+            hi = torch.where(big, mid, hi)
+            lo = torch.where(big, lo, mid)
+            live &= ~last
+        return {k: int(v) for k, v in n.items()}
+
+    def band(mid):
+        x = (mid.abs() - p.fracdisk) / band_w
+        return (x > 0.0) & (x < 1.0)
+
+    def outer(mid):
+        return mid.abs() > 0.5
+
+    x1 = replay(lambda v: harmpi.calcrmks(v, p), r, -2.0, 12.0,
+                dict(above=lambda mid: mid > p.xbr))
+    x2 = replay(lambda v: harmpi.calcthmksbl3(v, r, p), th, -1.0, 1.0,
+                dict(band=band, outer=outer,
+                     band_outer=lambda mid: band(mid) & outer(mid)))
+    n = r.numel()
+    ops = (n * INVERT_OPS["sample"]
+           + x1["steps"] * INVERT_OPS["x1_step"]
+           + x1["above"] * INVERT_OPS["x1_above"]
+           + x2["steps"] * INVERT_OPS["x2_step"]
+           + x2["outer"] * INVERT_OPS["x2_outer"]
+           + x2["band"] * INVERT_OPS["x2_band"]
+           + x2["band_outer"] * INVERT_OPS["x2_band_outer"])
+    return dict(ops=ops, ops_per_sample=ops / n,
+                x1_steps_per_sample=x1["steps"] / n,
+                x1_above_share=x1["above"] / x1["steps"],
+                x2_steps_per_sample=x2["steps"] / n,
+                x2_band_share=x2["band"] / x2["steps"],
+                x2_outer_share=x2["outer"] / x2["steps"])
+
+
+def invert_phase(dev):
+    """Phase 29: HARMPI's inversion kernels on the benchmark's frame, in
+    float64 and in float32 (prec="mixed"): {dtype: row}."""
+    import math
+
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid import harmpi
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    from grtrans_tpu_torch.testing import grmhd_dump as gd
+
+    spin = 0.9375
+    cfg = GrtransConfig(
+        fname="HARMPI", ename="POLSYNCHTH", nvals=4, spin=spin,
+        nn=INVERT_NN, uout=0.04, mbh=4e6, mumin=0.6, mumax=0.6,
+        fmin=2.3e11, fmax=2.3e11, iname="lsoda", mdotmin=1.2e17,
+        mdotmax=1.2e17, gmin=-1.0, sigcut=1.0,
+        gridvals=(-15.0, 15.0, -15.0, 15.0))
+    model = load_fluid_model("HARMPI", device=dev,
+                             dump=gd.harmpi_dump(bl=3, seed=SEED))
+    kept = []
+    invert = harmpi.x2_of_th_bl3
+
+    def spy(th, r, p, *args, **kw):
+        kept.append((th, r))
+        return invert(th, r, p, *args, **kw)
+
+    harmpi.x2_of_th_bl3 = spy
+    try:
+        reset_counts()
+        grtrans_run(cfg, model, device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        harmpi.x2_of_th_bl3 = invert
+    if counts["invert_kernel"] != 2 or counts["invert_twin"] != 0:
+        raise AssertionError(f"HARMPI frame: {counts['invert_kernel']} "
+                             f"inversion launches, {counts['invert_twin']} "
+                             "twin calls (want 2 and 0)")
+    del model
+    th64, r64 = kept[0]
+    del kept
+    # the benchmark's grid (harmpi_sgra_eheat): from 0.87 r+ to 1000 M,
+    # read_bl3_vars's jetcoords parameters, 288 x 128 zones
+    rin = 0.87 * (1.0 + math.sqrt(1.0 - spin * spin))
+    p = harmpi.bl3_params_from_header(
+        dict(R0=0.0, hslope=0.3, startx1=math.log(rin)))
+    x1out = harmpi.x1_of_r_twin(torch.tensor([1e3], dtype=torch.float64,
+                                             device=dev), p).item()
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        th, r = th64.to(dtype), r64.to(dtype)
+        n = r.numel()
+
+        def kernels():
+            return harmpi.x1_of_r(r, p), harmpi.x2_of_th_bl3(th, r, p)
+
+        def twins():
+            return (harmpi.x1_of_r_twin(r, p),
+                    harmpi.x2_of_th_bl3_twin(th, r, p))
+
+        (x1, x2), (t1, t2) = kernels(), twins()
+        row = dict(samples=n, counts=counts)
+        for name, ours, twin, lo, hi, nz in (("x1", x1, t1, math.log(rin),
+                                              x1out, 288),
+                                             ("x2", x2, t2, -1.0, 1.0, 128)):
+            zone_k = torch.floor((ours - lo) / (hi - lo) * nz)
+            zone_t = torch.floor((twin - lo) / (hi - lo) * nz)
+            row[name] = dict(
+                max_abs_err=(ours - twin).abs().max().item(),
+                bit_equal=(ours == twin).double().mean().item(),
+                zones_differ=(zone_k != zone_t).sum().item())
+        del x1, x2, t1, t2
+        t = dict(x1=cuda_ms(lambda: harmpi.x1_of_r(r, p), reps=5),
+                 x2=cuda_ms(lambda: harmpi.x2_of_th_bl3(th, r, p), reps=5),
+                 x1_twin=cuda_ms(lambda: harmpi.x1_of_r_twin(r, p), reps=1),
+                 x2_twin=cuda_ms(lambda: harmpi.x2_of_th_bl3_twin(th, r, p),
+                                 reps=1),
+                 both=cuda_ms(kernels, reps=5))
+        # outside the timing: the events of this frame's bisections
+        work = invert_work(th, r, p)
+        ops = work["ops"]
+        nbytes = n * INVERT_OPERANDS_PER_SAMPLE * th.element_size()
+        t_ops = ops / (PEAK_FLOPS[dtype] / 2) * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        ms = t["x1"] + t["x2"]
+        row.update(ms=ms, plain_ms=t["x1_twin"] + t["x2_twin"],
+                   bound_ms=bound,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   ops=ops, bytes=nbytes, share=bound / ms, work=work,
+                   times=t)
+        tag = "f64" if dtype == torch.float64 else "f32"
+        print(f"harmpi inversion {tag} {n} samples: kernels {t['x1']:.3f} + "
+              f"{t['x2']:.3f} ms (both {t['both']:.3f}), twins "
+              f"{t['x1_twin']:.1f} + {t['x2_twin']:.1f} ms; bound "
+              f"{bound:.3f} ms by {row['bound_by']} ({ops:.3e} ops "
+              f"estimated from the replayed steps: {work}; "
+              f"{nbytes / 1e9:.3f} GB), share {bound / ms:.1%}, estimated; "
+              f"x1 {row['x1']}, x2 {row['x2']}")
+        for name in ("x1", "x2"):
+            if not (row[name]["max_abs_err"] <= INVERT_TOL[dtype]
+                    and row[name]["zones_differ"] == 0):
+                raise AssertionError(f"harmpi inversion {tag} {name}: "
+                                     f"{row[name]}")
+        rows[tag] = row
+        del th, r
+    return rows
+
+
 def reset_counts():
     """Count the gather launches and twin calls from here on (the obs
     counters as they stand are the base)."""
@@ -504,7 +708,9 @@ def read_counts():
                   rows_bwd_simple=c["quad_gather_rows_bwd_w.launches.simple"],
                   twin_calls=sum(c[f"{name}.calls"] for name in TWINS),
                   march_kernel=c["march.kernel.launches"],
-                  march_twin=c["march.twin.calls"])
+                  march_twin=c["march.twin.calls"],
+                  invert_kernel=c["harmpi.invert.kernel.launches"],
+                  invert_twin=c["harmpi.invert.twin.calls"])
     for name in WRAPPERS:
         counts[name] = c[f"{name}.launches"]
         for dt in ("f32", "f64"):
@@ -2532,13 +2738,15 @@ def by_path(paths, key):
 
 
 def build_phase():
-    """Phase 2: build and load csrc/formal_march.cu and csrc/quad_gather.cu;
-    print ptxas's registers and spills."""
+    """Phase 2: build and load csrc/formal_march.cu, csrc/quad_gather.cu and
+    csrc/harmpi_invert.cu; print ptxas's registers and spills."""
     from grtrans_tpu_torch.ops import _build
     from grtrans_tpu_torch.ops import formal_march as fm
+    from grtrans_tpu_torch.ops import harmpi_invert as hi
     from grtrans_tpu_torch.ops import quad_gather as qg
 
-    for mod, flags in ((fm, fm.NVCC_FLAGS), (qg, ())):
+    for mod, flags in ((fm, fm.NVCC_FLAGS), (qg, ()),
+                       (hi, hi.NVCC_FLAGS)):
         t0 = time.perf_counter()
         mod.load_library()
         so = _build.library_path(mod.SOURCE, flags)
@@ -2638,6 +2846,9 @@ def run(dev):
     # 28. the march kernel
     march = march_phase(dev)
     march64 = march[march_row("f64")]
+    # 29. HARMPI's inversion kernels
+    invert = invert_phase(dev)
+    invert64 = invert["f64"]
 
     main = shapes["ffjet f64"]
     wide = shapes["phatdisk f64"]
@@ -2723,7 +2934,20 @@ def run(dev):
         "twin_calls_by_path": by_path(paths, "march_twin"),
         "max_abs_err": march64["max_rel_err"], "ms": march64["ms"],
         "plain_ms": march64["plain_ms"], "bound_ms": march64["bound_ms"],
-        "bound_by": march64["bound_by"], "shapes": march}],
+        "bound_by": march64["bound_by"], "shapes": march}, {
+        "name": "harmpi_invert", "route": "cuda",
+        "source": "grtrans_tpu_torch/csrc/harmpi_invert.cu",
+        "replaces": "grtrans_tpu/fluid/harmpi.py:158",
+        "launches": sum(by_path(paths, "invert_kernel").values())
+        + invert64["counts"]["invert_kernel"],
+        "launches_by_path": by_path(paths, "invert_kernel"),
+        "twin_calls_by_path": by_path(paths, "invert_twin"),
+        "max_abs_err": max(invert64["x1"]["max_abs_err"],
+                           invert64["x2"]["max_abs_err"]),
+        "ms": invert64["ms"], "plain_ms": invert64["plain_ms"],
+        "bound_ms": invert64["bound_ms"], "bound_by": invert64["bound_by"],
+        "shapes": {f"harmpi 256x256x400 bl3 {tag}": row
+                   for tag, row in invert.items()}}],
         "gradient_paths": {"fwdbwd_ffjet": fwdbwd,
                            "grad_harm3d": grad_harm3d,
                            "emitter_observer": emitter},

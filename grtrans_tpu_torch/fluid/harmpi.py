@@ -24,7 +24,10 @@ fluid.f90 convert_fluidvars_harmpi :1028-1072):
    Jacobian for u and b, computed on the model's device (the set-up span
    `setup.coords`).
  * Sampling: the inversion is the span `invert` (counter
-   `fluid.invert.samples`); nearest neighbour, the cell's upper corner
+   `fluid.invert.samples`); for BL = 3 on the card two CUDA kernel
+   launches (ops/harmpi_invert, counter `harmpi.invert.kernel.launches`),
+   on the CPU their torch twins (`harmpi.invert.twin.calls`); nearest
+   neighbour, the cell's upper corner
    (harmpi_vals :736-737 hard-codes rd = td = pd = 1), with 1e-3 damping
    of p and rho inside the innermost zone: one quad_gather_rows row a
    sample.  The float -> index casts are not clipped before the + 1, as in
@@ -50,6 +53,7 @@ from grtrans_tpu_torch.fluid.base import EmisInputs, FluidVars
 from grtrans_tpu_torch.fluid.harm import f64, four_vectors, lnrf_storage
 from grtrans_tpu_torch.fluid.thickdisk import bisect
 from grtrans_tpu_torch.geometry import kerr
+from grtrans_tpu_torch.ops import harmpi_invert
 from grtrans_tpu_torch.ops.intcast import to_int32
 from grtrans_tpu_torch.ops.quad_gather import quad_gather_rows
 
@@ -152,8 +156,26 @@ def drdx1_mks(x1, p):
     return _xi(x1, p).exp() * dxi
 
 
+def _kernel_takes(t):
+    """Whether the inversion kernels (ops/harmpi_invert) serve t: a CUDA
+    tensor, float64 or float32 (they raise on another dtype).  The twins
+    serve the CPU; the bisections carry no gradient, so grad mode does not
+    enter."""
+    return t.is_cuda
+
+
 def x1_of_r(r, p, lo=-2.0, hi=12.0, iters=60):
-    """Invert calcrmks by bisection (transformbl2mksbl3 :519)."""
+    """Invert calcrmks by bisection (transformbl2mksbl3 :519): one kernel
+    launch on a CUDA r, else the twin (counted as
+    "harmpi.invert.twin.calls")."""
+    if _kernel_takes(r):
+        return harmpi_invert.x1_of_r(r, p, lo, hi, iters)
+    obs.count("harmpi.invert.twin.calls")
+    return x1_of_r_twin(r, p, lo, hi, iters)
+
+
+def x1_of_r_twin(r, p, lo=-2.0, hi=12.0, iters=60):
+    """x1_of_r in torch operations, the x1 kernel's twin."""
     return bisect(lambda x1: calcrmks(x1, p), r, lo, hi, iters)
 
 
@@ -232,7 +254,17 @@ def calcth_cylindrified(x2in, rin, p):
 
 def x2_of_th_bl3(th, r, p, iters=60):
     """Invert calcthmksbl3 in x2 by bisection (findx2mksbl3 :425-440; not
-    the cylindrified map, matching transformbl2mksbl3 :526)."""
+    the cylindrified map, matching transformbl2mksbl3 :526): one kernel
+    launch on a CUDA th, else the twin (counted as
+    "harmpi.invert.twin.calls")."""
+    if _kernel_takes(th):
+        return harmpi_invert.x2_of_th_bl3(th, r, p, iters=iters)
+    obs.count("harmpi.invert.twin.calls")
+    return x2_of_th_bl3_twin(th, r, p, iters)
+
+
+def x2_of_th_bl3_twin(th, r, p, iters=60):
+    """x2_of_th_bl3 in torch operations, the x2 kernel's twin."""
     return bisect(lambda x2: calcthmksbl3(x2, r, p), th, -1.0, 1.0, iters)
 
 
@@ -430,8 +462,10 @@ class HarmPI(nn.Module):
 
     def vals(self, x, k, a):
         nx1, nx2, nx3 = self.nx1, self.nx2, self.nx3
-        r = x[..., 1]
-        th = x[..., 2]
+        # contiguous, as the inversion kernels read them: the copies fall
+        # before the span `invert`
+        r = x[..., 1].contiguous()
+        th = x[..., 2].contiguous()
         zphi = torch.remainder(kerr.bl2ks_phi(r, x[..., 3], a), 2.0 * math.pi)
         zphi = torch.where(zphi < 0.0, zphi + 2.0 * math.pi, zphi)
         # the sample's grid coordinates by fixed-count root finders (iters:
