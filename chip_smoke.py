@@ -14,11 +14,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      wrapper sends to the wide-row kernel; the 2-D tables of the tiled
      kernel's other shapes at 4e6 queries: HARM 4 x 10 on a 32 x 24 and a
      288 x 128 grid, KORAL 4 x 11, SPHACC 2 x 2, NUMDISK 4 x 1 and the
-     per-sample-p POLSYNCHPL table 4 x 6) on uniformly random rows, check
-     the out-of-range flag, and time with CUDA events: the kernel the
-     wrapper picks, the generic kernel, the plain version and
-     embedding_bag (the one-call PyTorch yardstick), beside the bound
-     computed from the bytes the call must move;
+     per-sample-p POLSYNCHPL table 4 x 6) on uniformly random rows: the
+     kernel the wrapper picks and, at the tiled shapes, the generic kernel
+     (weights off 16 bytes) against the plain version, check the
+     out-of-range flag, and time with CUDA events: the kernel the wrapper
+     picks, the plain version and embedding_bag (the one-call PyTorch
+     yardstick), beside the bound computed from the bytes the call must
+     move;
   4. render the FFJET flagship (POLSYNCHPL, 100x100 pixels x 400 points,
      float64) on a synthetic dump at the real table size through
      grtrans_run(device="cuda"), with the launch count of every kernel
@@ -49,20 +51,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      frames, both disks at 32x32 x 1, and a SARIAF + POLSYNCHTH + formal
      render with extra=1 at 16x16 x 64 (Stokes and each of the 19 extra
      channels).
- 11. quad_gather_rows, the multi-row gather of the GRMHD snapshot
-     samplers: its tiled kernel with and without deduplication (a warp's
-     lanes sharing a row's copy, which the port runs) and its simple
-     kernel against the plain version at a 288x128x128 snapshot's table
-     (4,718,592 rows of 2 x 10) with 4e6 queries of R = 4 rows in f64 and
-     f32, of R = 8 rows on three slices, of R = 1 (HARMPI's 1 x 10), on a
-     stream whose queries all name one row; the simple kernel alone where
-     the wrapper sends only it: KORAL3D's bins (R = 8 and R = 4 of 1 x 6,
-     ragged last tile; also timed from CUDA graphs, without the host's
-     launch cost) and rows the bulk copy cannot take (2 x 11 in f32); the
-     wide-row kernel at ragged widths; the out-of-range flag of every
-     kernel; timed in the order plain, embedding_bag, simple, tiled
-     without and with deduplication, and back (embedding_bag on the table
-     viewed as (2 NS, nf) is the library yardstick);
+ 11. quad_gather_rows, the multi-row gather of the GRMHD snapshot samplers: the
+     kernel the wrapper picks (tiled, a warp's lanes sharing a row's copy)
+     against the plain version at a 288x128x128 snapshot's table (4,718,592
+     rows of 2 x 10) with 4e6 queries of R = 4 rows in f64 and f32, of R = 8
+     rows on three slices, of R = 1 (HARMPI's 1 x 10), on a stream whose
+     queries all name one row, each also on the simple kernel (the table
+     off 16 bytes); the simple kernel where the wrapper sends it:
+     KORAL3D's bins (R = 8 and R = 4 of 1 x 6, ragged last tile; also timed
+     from CUDA graphs, without the host's launch cost) and rows the bulk copy
+     cannot take (2 x 11 in f32); the wide-row kernel at ragged widths; the
+     out-of-range flag of the wide, tiled and simple kernels (the last on a
+     table off 16 bytes); timed in the order plain, embedding_bag, kernel, and
+     back (embedding_bag on the table viewed as (2 NS, nf) is the library
+     yardstick);
  12. a HARM3D snapshot frame (POLSYNCHTH, formal, 100x100 x 400, float64)
      on a seeded synthetic 288x128x128 snapshot through
      Grtrans(...).run(model=...): finite, I >= 0, total flux in Jy at Sgr
@@ -114,11 +116,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      (a) quad_gather_bwd_w (4e6 random rows of FFJET's (16384, 4 x 9) in
      f64 and f32 and of the POLSYNCHPL cutoff table (201, 2 x 6)) and
      quad_gather_rows_bwd_w (the snapshot's (4,718,592, 2 x 10), R = 4),
-     the kernel the wrapper picks (tiled) and the first design forced
-     (generic / simple), each against its plain twin (KERNEL_TOL of
-     max|twin|) and the two against each other, the out-of-range flag of
-     both, a table that requires a gradient refused, CUDA-event times of
-     both beside the twin, the backward of embedding_bag with respect to
+     the kernel the wrapper picks (tiled) and the first design (generic /
+     simple, reached with g off 16 bytes), each against its plain twin
+     (KERNEL_TOL of max|twin|) and the two against each other, the
+     out-of-range flag of both, a table
+     that requires a gradient refused, CUDA-event times of the picked
+     kernel beside the twin, the backward of embedding_bag with respect to
      its per_sample_weights and the byte bound; (b) after phase 27, the
      same on the gradient paths' own index streams, every backward launch
      of one chunk of phases 22, 23 and 27 kept;
@@ -204,6 +207,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmark import roofline
 from grtrans_tpu_torch import obs
 
 SEED = 0
@@ -317,10 +321,9 @@ def graph_ms(fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
-HBM_BYTES_PER_S = 3.35e12             # H100 SXM device memory rate
-# peak rates outside the tensor cores: float32 from the H100 data sheet,
-# float64 at half of it
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+# the card's published memory rate and peaks outside the tensor cores
+HBM_BYTES_PER_S = roofline.HBM_BYTES_PER_S
+PEAK_FLOPS = roofline.PEAK_FLOPS
 
 
 def gather_bound_ms(n, ns, nc, nf, dtype):
@@ -718,64 +721,74 @@ def read_counts():
     return counts
 
 
-def rows_bound_ms(idx, w, ns, nc, nf):
-    """Least time for one quad_gather_rows: index, weights and output once
-    and every distinct row the queries name once, over the memory rate,
-    against 2 R nc nf operations a query over the peak rate."""
+def rows_bound_ms(table, idx, w, nc, nf):
+    """Least time for one quad_gather_rows: its bytes (roofline.gather_bytes:
+    index, weights and output once and every distinct row once) over the
+    memory rate, against 2 R nc nf operations a query over the peak rate;
+    and the distinct rows."""
     n, r = idx.shape
-    size = w.element_size()
-    distinct = idx.unique().numel()
-    nbytes = n * r * 4 + n * r * nc * size + n * nf * size \
-        + distinct * nc * nf * size
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = roofline.gather_bytes(table, idx, w, nc, nf) \
+        / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * n * r * nc * nf / PEAK_FLOPS[w.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), distinct
+                                 else "operations"), idx.unique().numel()
 
 
 def check_rows(qg, name, table, idx, w, nc, nf, reps=10, graph=False):
-    """quad_gather_rows against its plain version on the card, each kernel
-    that takes the shape (simple; tiled without and with deduplication),
-    then CUDA event times in the order plain, embedding_bag, simple, tiled
-    without and with deduplication, and back; with `graph`, the kernels
-    once more from CUDA graphs (graph_ms: device time without the host's
-    launch cost), "<kernel> graph".  Returns the dict of mean times
-    ("kernel": the one the wrapper picks), bound and the largest
-    max_abs_err of the kernels."""
+    """quad_gather_rows against its plain version on the card, on the
+    kernel the wrapper picks and, where that is the tiled one, on the simple
+    kernel (the table copied off 16 bytes), then CUDA event times of the
+    picked one in the order plain, embedding_bag, kernel, and back; with
+    `graph`, the kernel once more from CUDA graphs (graph_ms: device time
+    without the host's launch cost), "kernel graph".  Returns the dict of
+    mean times, the bound, the picked kernel's max_abs_err and name
+    ("picked") and the simple kernel's (None where not run)."""
     n, r = idx.shape
     ns = table.shape[0]
-    tiled = qg.rows_kernel(r, nc, nf, table.element_size(),
-                           table.data_ptr() % 16 == 0) == "tiled"
+    picked = qg.rows_kernel(r, nc, nf, table.element_size(),
+                            table.data_ptr() % 16 == 0)
 
-    def simple():
-        return qg.quad_gather_rows(table, idx, w, nc, nf, simple=True)
-
-    def nodedup():
-        return qg.quad_gather_rows(table, idx, w, nc, nf, dedup=False)
-
-    def warp():
+    def kernel():
         return qg.quad_gather_rows(table, idx, w, nc, nf)
 
-    kernels = [simple, nodedup, warp] if tiled else [simple]
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
     # a ray's samples past its end carry NaN weights: NaN in both
     fin = torch.isfinite(ref)
     scale = ref[fin].abs().max().item()
     tol = ROWS_TOL[table.dtype]
-    errs = {}
-    for fn in kernels:
-        out = fn()
+    out = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isfinite(out), fin):
+        raise AssertionError(f"{name}: {picked} kernel and plain differ in "
+                             "where they are finite")
+    err = (out - ref)[fin].abs().max().item()
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max|{picked} - plain| {err} > {tol} "
+                             f"* {scale}")
+    if qg.error_flag(table.device).item() != 0:
+        raise AssertionError(f"{name}: out-of-range flag set")
+    del out
+    simple_err = None
+    if picked == "tiled":
+        # the simple kernel at the same shape, reached with the table off
+        # 16 bytes
+        before = obs.counters()["quad_gather_rows.launches.simple"]
+        out = qg.quad_gather_rows(off_16(table), idx, w, nc, nf)
         torch.cuda.synchronize()
+        if obs.counters()["quad_gather_rows.launches.simple"] != before + 1:
+            raise AssertionError(f"{name}: a table off 16 bytes did not go "
+                                 "to the simple kernel")
         if not torch.equal(torch.isfinite(out), fin):
-            raise AssertionError(f"{name}: {fn.__name__} kernel and plain "
-                                 "differ in where they are finite")
-        errs[fn.__name__] = (out - ref)[fin].abs().max().item()
-        if not errs[fn.__name__] <= tol * scale:
-            raise AssertionError(f"{name}: max|{fn.__name__} - plain| "
-                                 f"{errs[fn.__name__]} > {tol} * {scale}")
+            raise AssertionError(f"{name}: simple kernel and plain differ "
+                                 "in where they are finite")
+        simple_err = (out - ref)[fin].abs().max().item()
+        if not simple_err <= tol * scale:
+            raise AssertionError(f"{name}: max|simple - plain| {simple_err} "
+                                 f"> {tol} * {scale}")
         if qg.error_flag(table.device).item() != 0:
-            raise AssertionError(f"{name}: out-of-range flag set")
+            raise AssertionError(f"{name}: out-of-range flag set (simple)")
         del out
+        torch.cuda.empty_cache()
     del ref
     bag_idx = (idx.long()[:, :, None] * nc
                + torch.arange(nc, device=idx.device)).reshape(n, r * nc)
@@ -792,29 +805,27 @@ def check_rows(qg, name, table, idx, w, nc, nf, reps=10, graph=False):
     lib_err = (library() - plain())[fin].abs().max().item()
     del fin
     times = {}
-    order = [plain, library, *kernels]
+    order = [plain, library, kernel]
     for fn in order + order[::-1]:
         times.setdefault(fn.__name__, []).append(cuda_ms(fn, reps))
     if graph:
-        for fn in kernels + kernels[::-1]:
-            times.setdefault(f"{fn.__name__} graph", []).append(
-                graph_ms(fn, reps))
-    bound, bound_by, distinct = rows_bound_ms(idx, w, ns, nc, nf)
+        for _ in range(2):
+            times.setdefault("kernel graph", []).append(graph_ms(kernel,
+                                                                 reps))
+    bound, bound_by, distinct = rows_bound_ms(table, idx, w, nc, nf)
     res = {k: sum(v) / len(v) for k, v in times.items()}
-    picked = "warp" if tiled else "simple"
-    res.update(kernel=res[picked], bound_ms=bound, bound_by=bound_by,
-               max_abs_err=max(errs.values()), picked=picked)
+    res.update(bound_ms=bound, bound_by=bound_by, max_abs_err=err,
+               picked=picked, simple_max_abs_err=simple_err)
+    also = "" if simple_err is None else \
+        f", max|simple (table off 16 bytes) - plain| {simple_err:.3e}"
     print(f"{name}: N={n} R={r} table=({ns}, {nc * nf}) {table.dtype}, "
-          f"{distinct} distinct rows: max|kernel - plain| "
-          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f" (max|plain| {scale:.3e}, bar {tol:g} of it); ms "
+          f"{distinct} distinct rows: max|{picked} - plain| {err:.3e}{also} "
+          f"(max|plain| {scale:.3e}, bar {tol:g} of it); ms "
           + "; ".join(f"{k} " + "/".join(f"{t:.4f}" for t in v)
                       for k, v in times.items())
           + f"; bound {bound:.4f} ms by {bound_by}; share of bound "
-          + ", ".join(f"{fn.__name__} {bound / res[fn.__name__]:.3f}"
-                      for fn in kernels)
-          + f" (the wrapper picks {picked}); max|embedding_bag - plain| "
-          f"{lib_err:.2e}")
+          f"{bound / res['kernel']:.3f} (the wrapper picks {picked}); "
+          f"max|embedding_bag - plain| {lib_err:.2e}")
     return res
 
 
@@ -913,30 +924,33 @@ def rows_phase(dev, qg):
     idx[199, 0] = -1
     bad = torch.zeros(200, dtype=torch.bool, device=dev)
     bad[[1, 199]] = True
-    for kernel in ("none", "warp", "simple"):
-        out = qg.quad_gather_rows(tb[:, :20].contiguous(), idx,
+    rows20 = torch.ones(16 * 20 + 1, dtype=torch.float64, device=dev)
+    for kernel, table in (("tiled", rows20[:-1].view(16, 20)),
+                          ("simple", rows20[1:].view(16, 20))):
+        before = obs.counters()[f"quad_gather_rows.launches.{kernel}"]
+        out = qg.quad_gather_rows(table, idx,
                                   torch.ones((200, 4, 2), dtype=torch.float64,
-                                             device=dev), 2, 10,
-                                  simple=kernel == "simple",
-                                  dedup=kernel == "warp")
+                                             device=dev), 2, 10)
         torch.cuda.synchronize()
+        if obs.counters()[f"quad_gather_rows.launches.{kernel}"] != \
+                before + 1:
+            raise AssertionError(f"quad_gather_rows: the {kernel} kernel "
+                                 "was not picked")
         if flag.item() != 1 or not torch.isnan(out[bad]).all() \
                 or not (out[~bad] == 8).all():
             raise AssertionError(f"quad_gather_rows {kernel}: out-of-range "
                                  "index not flagged")
         flag.zero_()
-    print("wide and rows kernels (tiled without and with deduplication, "
-          "simple): "
+    print("wide and rows kernels (tiled, simple on a table off 16 bytes): "
           "out-of-range index flagged, its query NaN, others untouched")
     return shapes
 
 
 def time_gather(qg, name, table, idx, w, nc, nf):
     """CUDA-event times of the plain version, the one-call PyTorch
-    yardstick (embedding_bag, used nowhere in the port), the generic
-    kernel and the kernel the wrapper picks, in the order plain, library,
-    generic, kernel, kernel, generic, library, plain.  Returns a dict of
-    mean times in ms plus the bound."""
+    yardstick (embedding_bag, used nowhere in the port) and the kernel the
+    wrapper picks, in the order plain, library, kernel, kernel, library,
+    plain.  Returns a dict of mean times in ms plus the bound."""
     n, ns = idx.shape[0], table.shape[0]
     bag_idx = idx.long()[:, None] * nc + torch.arange(nc, device=idx.device)
     bag_table = table.view(ns * nc, nf)
@@ -948,16 +962,11 @@ def time_gather(qg, name, table, idx, w, nc, nf):
         return torch.nn.functional.embedding_bag(
             bag_idx, bag_table, per_sample_weights=w, mode="sum")
 
-    def generic():
-        return qg.quad_gather(table, idx, w, nc, nf, generic=True)
-
     def kernel():
         return qg.quad_gather(table, idx, w, nc, nf)
 
     lib_err = (library() - plain()).abs().max().item()
-    gen_err = (generic() - plain()).abs().max().item()
-    order = [plain, library, generic, kernel, kernel, generic, library,
-             plain]
+    order = [plain, library, kernel, kernel, library, plain]
     times = {}
     for fn in order:
         times.setdefault(fn.__name__, []).append(cuda_ms(fn))
@@ -966,15 +975,12 @@ def time_gather(qg, name, table, idx, w, nc, nf):
     res.update(bound_ms=bound, bound_by=bound_by)
     print(f"{name}: N={n} table=({ns}, {nc * nf}) {table.dtype}: kernel "
           + "/".join(f"{t:.4f}" for t in times["kernel"])
-          + " ms, generic kernel "
-          + "/".join(f"{t:.4f}" for t in times["generic"])
           + " ms, plain " + "/".join(f"{t:.4f}" for t in times["plain"])
           + " ms, embedding_bag "
           + "/".join(f"{t:.4f}" for t in times["library"])
           + f" ms; bound {bound:.4f} ms by {bound_by} "
           f"(share of bound {bound / res['kernel']:.3f}); "
-          f"max|embedding_bag - plain| {lib_err:.2e}, "
-          f"max|generic - plain| {gen_err:.2e}")
+          f"max|embedding_bag - plain| {lib_err:.2e}")
     return res
 
 
@@ -993,20 +999,37 @@ def check_kernel(qg, name, ns, nc, nf, dtype, dev, n=N_QUERIES):
 
 
 def compare_gather(qg, name, table, idx, w, nc, nf):
-    out = qg.quad_gather(table, idx, w, nc, nf)
+    """quad_gather against its plain version on the card, on the kernel the
+    wrapper picks and, where that is the tiled one, on the generic kernel
+    (the weights copied off 16 bytes): each within KERNEL_TOL of
+    max|plain|, no out-of-range flag.  Returns the picked kernel's
+    max_abs_err."""
     ref = qg.quad_gather_ref(table, idx, w, nc, nf)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
     scale = ref.abs().max().item()
     tol = KERNEL_TOL[table.dtype]
-    print(f"{name}: max|kernel - plain| {err:.3e} (max|plain| {scale:.3e}, "
-          f"bar {tol:g} of it)")
-    if not err <= tol * scale:
-        raise AssertionError(f"{name}: max|kernel - plain| {err} > "
-                             f"{tol} * {scale}")
-    if qg.error_flag(table.device).item() != 0:
-        raise AssertionError(f"{name}: out-of-range flag set")
-    return err
+    runs = [("kernel", w)]
+    if qg.gather_kernel(nc, nf, True) == "tiled":
+        runs.append(("generic", off_16(w)))
+    errs = {}
+    for kernel, ww in runs:
+        before = obs.counters()["quad_gather.launches.generic"]
+        out = qg.quad_gather(table, idx, ww, nc, nf)
+        torch.cuda.synchronize()
+        if kernel == "generic" and \
+                obs.counters()["quad_gather.launches.generic"] != before + 1:
+            raise AssertionError(f"{name}: weights off 16 bytes did not go "
+                                 "to the generic kernel")
+        errs[kernel] = (out - ref).abs().max().item()
+        if not errs[kernel] <= tol * scale:
+            raise AssertionError(f"{name}: max|{kernel} - plain| "
+                                 f"{errs[kernel]} > {tol} * {scale}")
+        if qg.error_flag(table.device).item() != 0:
+            raise AssertionError(f"{name}: out-of-range flag set ({kernel})")
+        del out
+    print(f"{name}: " + ", ".join(f"max|{k} - plain| {v:.3e}"
+                                  for k, v in errs.items())
+          + f" (max|plain| {scale:.3e}, bar {tol:g} of it)")
+    return errs["kernel"]
 
 
 def check_error_flag(qg, dev):
@@ -1996,10 +2019,18 @@ def bwd_bound_ms(idx, nc, nf, dtype):
                                  else "operations"), distinct
 
 
-# the backward wrappers, their first design's forcing keyword and name, and
-# the read_counts key of each kernel
+# the backward wrappers, their first design's name and the read_counts key
+# of each kernel
 BWD = {"quad_gather_bwd_w": ("generic", "bwd_"),
        "quad_gather_rows_bwd_w": ("simple", "rows_bwd_")}
+
+
+def off_16(t):
+    """A contiguous copy of t one element past 16 bytes: an operand that
+    the pickers send to the first design."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
 
 
 def bwd_picked(qg, table, idx, g, nc, nf):
@@ -2012,19 +2043,18 @@ def bwd_picked(qg, table, idx, g, nc, nf):
 
 
 def check_bwd(qg, name, table, idx, g, nc, nf, reps=10):
-    """The weights' backward against its plain twin on the card: the kernel
-    the wrapper picks and the first design forced (generic / simple), each
-    within KERNEL_TOL of max|twin|, no out-of-range flag, and the two
-    within KERNEL_TOL of each other (both sum the fields in one order);
-    then CUDA event times in the order plain, library, first design,
-    kernel, kernel, first design, library, plain.  The library yardstick
-    is the backward of embedding_bag(..., per_sample_weights=w,
-    mode="sum") with respect to w (the forward left out: its graph is kept
-    and its backward replayed).  Returns the dict of mean times ("kernel":
-    the picked one; "tiled" and "first": each design), the bound,
-    max_abs_err and the picked kernel's name."""
+    """The weights' backward against its plain twin on the card: the
+    kernel the wrapper picks and the first design (generic / simple, g
+    copied off 16 bytes), each within KERNEL_TOL of max|twin|, no
+    out-of-range flag, and the two within KERNEL_TOL of each other (both
+    sum the fields in one order); then CUDA event times of the picked one
+    in the order plain, library, kernel, kernel, library, plain.  The library yardstick is the backward
+    of embedding_bag(..., per_sample_weights=w, mode="sum") with respect to
+    w (the forward left out: its graph is kept and its backward replayed).
+    Returns the dict of mean times, the bound, max_abs_err (the picked
+    kernel's), first_max_abs_err and the picked kernel's name."""
     wrapper, picked = bwd_picked(qg, table, idx, g, nc, nf)
-    force, _ = BWD[wrapper]
+    first, _ = BWD[wrapper]
     rows = wrapper == "quad_gather_rows_bwd_w"
     kern = getattr(qg, wrapper)
     twin = getattr(qg, wrapper + "_ref")
@@ -2034,24 +2064,32 @@ def check_bwd(qg, name, table, idx, g, nc, nf, reps=10):
     scale = ref.abs().max().item()
     tol = KERNEL_TOL[table.dtype]
 
-    def first():
-        return kern(table, idx, g, nc, nf, **{force: True})
-
     def kernel():
         return kern(table, idx, g, nc, nf)
 
-    outs = {fn.__name__: fn() for fn in (kernel, first)}
-    torch.cuda.synchronize()
-    errs = {k: (v - ref).abs().max().item() for k, v in outs.items()}
-    apart = (outs["kernel"] - outs["first"]).abs().max().item()
-    print(f"{name}: max|{picked} - plain| {errs['kernel']:.3e}, "
-          f"max|{force} - plain| {errs['first']:.3e}, max|{picked} - "
-          f"{force}| {apart:.3e} (max|plain| {scale:.3e}, bar {tol:g} of it)")
-    if not max(*errs.values(), apart) <= tol * scale:
-        raise AssertionError(f"{name}: {errs}, {apart} > {tol} * {scale}")
+    out = kernel()
+    err = (out - ref).abs().max().item()
     if qg.error_flag(table.device).item() != 0:
         raise AssertionError(f"{name}: out-of-range flag set")
-    del outs
+    # the first design on the same operands, reached with g off 16 bytes
+    counter = f"{wrapper}.launches.{first}"
+    before = obs.counters()[counter]
+    first_out = kern(table, idx, off_16(g), nc, nf)
+    torch.cuda.synchronize()
+    if obs.counters()[counter] != before + 1:
+        raise AssertionError(f"{name}: g off 16 bytes did not go to the "
+                             f"{first} kernel")
+    first_err = (first_out - ref).abs().max().item()
+    apart = (out - first_out).abs().max().item()
+    del out, first_out
+    print(f"{name}: max|{picked} - plain| {err:.3e}, max|{first} - plain| "
+          f"{first_err:.3e}, max|{picked} - {first}| {apart:.3e} "
+          f"(max|plain| {scale:.3e}, bar {tol:g} of it)")
+    if not max(err, first_err, apart) <= tol * scale:
+        raise AssertionError(f"{name}: {err}, {first_err}, {apart} > {tol} "
+                             f"* {scale}")
+    if qg.error_flag(table.device).item() != 0:
+        raise AssertionError(f"{name}: out-of-range flag set ({first})")
     bag_idx = (idx.long().reshape(n, r, 1) * nc
                + torch.arange(nc, device=idx.device)).reshape(n, r * nc)
     w = torch.ones((n, r * nc), dtype=table.dtype, device=table.device,
@@ -2068,27 +2106,23 @@ def check_bwd(qg, name, table, idx, g, nc, nf, reps=10):
     def library():
         return torch.autograd.grad(bag, w, g, retain_graph=True)
 
-    kernels = [first, kernel] if picked != force else [first]
-    order = [plain, library, *kernels]
+    order = [plain, library, kernel]
     times = {}
     for fn in order + order[::-1]:
         times.setdefault(fn.__name__, []).append(cuda_ms(fn, reps=reps))
     bound, bound_by, distinct = bwd_bound_ms(idx, nc, nf, table.dtype)
     res = {k: sum(v) / len(v) for k, v in times.items()}
-    res.setdefault("kernel", res["first"])
-    res.update(tiled=res["kernel"] if picked == "tiled" else None,
-               bound_ms=bound, bound_by=bound_by, max_abs_err=errs["kernel"],
-               picked=picked, queries=n, distinct_rows=distinct)
-    label = dict(kernel=picked, first=force)
+    res.update(bound_ms=bound, bound_by=bound_by, max_abs_err=err,
+               first_max_abs_err=first_err, picked=picked, queries=n,
+               distinct_rows=distinct)
     print(f"{name}: N={n} R={r} table=({ns}, {nc * nf}) {table.dtype}, "
           f"{distinct} distinct rows: ms "
-          + "; ".join(f"{label.get(k, k)} "
+          + "; ".join(f"{picked if k == 'kernel' else k} "
                       + "/".join(f"{t:.4f}" for t in v)
                       for k, v in times.items())
           + f" (library: embedding_bag's backward); bound {bound:.4f} ms by "
-          f"{bound_by}; share of bound {picked} "
-          f"{bound / res['kernel']:.3f}, {force} {bound / res['first']:.3f} "
-          f"(the wrapper picks {picked}); max|embedding_bag - plain| "
+          f"{bound_by}; share of bound {bound / res['kernel']:.3f} (the "
+          f"wrapper picks {picked}); max|embedding_bag - plain| "
           f"{lib_err:.2e}")
     del bag, w
     return res
@@ -2096,23 +2130,27 @@ def check_bwd(qg, name, table, idx, g, nc, nf, reps=10):
 
 def bwd_flag_check(qg, name, table, idx, g, nc, nf):
     """An out-of-range row in query 1: the flag set, NaN in that query's
-    dw and in no other, on the picked kernel and on the first design."""
+    dw and in no other, on the picked kernel and on the first design (g
+    off 16 bytes)."""
     wrapper, picked = bwd_picked(qg, table, idx, g, nc, nf)
-    force, _ = BWD[wrapper]
+    first, _ = BWD[wrapper]
     kern = getattr(qg, wrapper)
     bad = idx[:300].clone()
     bad.view(300, -1)[1, -1] = table.shape[0]
     flag = qg.error_flag(table.device)
-    for kw in ({}, {force: True}):
-        dw = kern(table, bad, g[:300].contiguous(), nc, nf, **kw)
+    for kernel, g300 in ((picked, g[:300].contiguous()),
+                         (first, off_16(g[:300]))):
+        if bwd_picked(qg, table, bad, g300, nc, nf)[1] != kernel:
+            raise AssertionError(f"{name}: {kernel} not picked")
+        dw = kern(table, bad, g300, nc, nf)
         torch.cuda.synchronize()
         if flag.item() != 1 or not torch.isnan(dw[1]).all() \
                 or torch.isnan(dw[[0, *range(2, 300)]]).any():
-            raise AssertionError(f"{name} {kw or picked}: out-of-range row "
-                                 "not flagged")
+            raise AssertionError(f"{name} {kernel}: out-of-range row not "
+                                 "flagged")
         flag.zero_()
     print(f"{name}: out-of-range row flagged, its dw NaN ({picked} and "
-          f"{force})")
+          f"{first})")
 
 
 BWD_SHAPES = (   # name, rows, R (None: quad_gather_bwd_w), nc, nf, dtype
@@ -2128,9 +2166,8 @@ def bwd_kernel_phase(dev, qg):
     shapes of the gradient paths (uniformly random rows, N = 4e6): FFJET
     (16384, 4 x 9) in f64 and f32, the POLSYNCHPL cutoff table (201, 2 x
     6) and the snapshot's phi-pair-packed table (4,718,592, 2 x 10), R =
-    4; each the picked kernel beside the first design forced; the
-    out-of-range flag of each; a table that requires a gradient
-    refused."""
+    4; each the picked kernel; the out-of-range flag of it and of the
+    first design; a table that requires a gradient refused."""
     rng = np.random.default_rng(SEED + 21)
     out = {}
     for name, ns, r, nc, nf, dtype in BWD_SHAPES:
@@ -2203,8 +2240,8 @@ def check_picked(qg, name, kept, counts):
 
 def bwd_stream_phase(qg, streams):
     """Phase 21 (b): the backward kernels on the gradient paths' own index
-    streams, kept in phases 22, 23 and 27: each launch of a pass, the
-    picked kernel beside the first design, as check_bwd."""
+    streams, kept in phases 22, 23 and 27: each launch of a pass on the
+    picked kernel, as check_bwd."""
     out = {}
     for path, kept in streams.items():
         for i, (wrapper, (table, idx, g, nc, nf)) in enumerate(kept):
@@ -2745,11 +2782,10 @@ def build_phase():
     from grtrans_tpu_torch.ops import harmpi_invert as hi
     from grtrans_tpu_torch.ops import quad_gather as qg
 
-    for mod, flags in ((fm, fm.NVCC_FLAGS), (qg, ()),
-                       (hi, hi.NVCC_FLAGS)):
+    for mod in (fm, qg, hi):
         t0 = time.perf_counter()
-        mod.load_library()
-        so = _build.library_path(mod.SOURCE, flags)
+        _build.load(mod.SOURCE, mod.NVCC_FLAGS, mod.ARGTYPES)
+        so = _build.library_path(mod.SOURCE, mod.NVCC_FLAGS)
         print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -2868,15 +2904,14 @@ def run(dev):
         "max_abs_err": main["max_abs_err"], "ms": main["kernel"],
         "plain_ms": main["plain"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library"],
-        "generic_ms": main["generic"], "shapes": shapes}, {
+        "shapes": shapes}, {
         "name": "quad_gather_wide", "route": "cuda", "source": source,
         "replaces": "grtrans_tpu/ops/pallas_gather.py:49",
         "launches": gather_by_kernel["wide"],
         "launches_by_path": by_path(paths, "wide"),
         "max_abs_err": wide["max_abs_err"], "ms": wide["kernel"],
         "plain_ms": wide["plain"], "bound_ms": wide["bound_ms"],
-        "bound_by": wide["bound_by"], "library_ms": wide["library"],
-        "generic_ms": wide["generic"]}, {
+        "bound_by": wide["bound_by"], "library_ms": wide["library"]}, {
         "name": "quad_gather_rows", "route": "cuda", "source": source,
         "replaces": "grtrans_tpu/fluid/grmhd3d.py:212",
         "launches": sum(by_path(paths, "quad_gather_rows").values()),
@@ -2884,8 +2919,7 @@ def run(dev):
         "launches_by_kernel": rows_by_kernel, "slabs": slabs,
         "max_abs_err": rows["max_abs_err"], "ms": rows["kernel"],
         "plain_ms": rows["plain"], "bound_ms": rows["bound_ms"],
-        "bound_by": rows["bound_by"], "library_ms": rows["library"],
-        "simple_ms": rows["simple"]}] + [{
+        "bound_by": rows["bound_by"], "library_ms": rows["library"]}] + [{
         "name": name + suffix, "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": sum(paths[p][name + suffix] for p in on),
@@ -2896,7 +2930,6 @@ def run(dev):
         "max_abs_err": t["max_abs_err"], "ms": t["kernel"],
         "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library"],
-        "tiled_ms": t["tiled"], BWD[name][0] + "_ms": t["first"],
         "shapes": {k: v for k, v in list(bwd.items())
                    + list(bwd_streams.items())
                    if (k.startswith(name + " ") or k == name)

@@ -60,7 +60,7 @@
 // corners of a binned population.  A snapshot table is hundreds of MB, far
 // beyond L2, so scattered rows come from device memory; element offsets
 // idx * (nc * nf) are formed in 64 bits.
-//  * quad_gather_rows_tiled<T, R, NC, DEDUP>, for (R, NC) in (4, 2),
+//  * quad_gather_rows_tiled<T, R, NC>, for (R, NC) in (4, 2),
 //    (8, 2), (1, 1) and rows that are whole 16-byte pieces of at most
 //    kRowsMaxRowBytes.  A persistent grid; a block of 128
 //    threads takes tiles of 128 / R consecutive queries, one (query, row)
@@ -70,13 +70,13 @@
 //    memory by one Hopper bulk copy (cp.async.bulk, no tensor map),
 //    completion counted on the stage's mbarrier, armed with the tile's
 //    bytes; two stages, so the next tile's copies are in flight while this
-//    one is combined.  DEDUP (what the port runs): lanes of a warp that
-//    name one row (neighbouring points of a ray share cells; a frame names
-//    each row ~8 times) share the copy of the lowest of them
-//    (__match_any_sync); without it every slot copies its own row, kept to
-//    be timed against it.  The combine is one thread per (query, field)
-//    from shared memory, rows r-major then corners c, as the plain version
-//    sums; the outputs leave through shared memory in 16-byte stores.  The
+//    one is combined.  Lanes of a warp that name one row (neighbouring
+//    points of a ray share cells; a frame names each row ~8 times) share
+//    the copy of the lowest of them (__match_any_sync): +17% on a frame's
+//    rows, a tie on random rows (PERF.md).  The combine is one thread per
+//    (query, field) from shared memory, rows r-major then corners c, as
+//    the plain version sums; the outputs leave through shared memory in
+//    16-byte stores.  The
 //    launch set-up (shared-memory attribute, resident blocks) is worked out
 //    once per kernel, device and row size.  The pipeline (rows_pipeline:
 //    index fetch, ring, dedup, tile stream) is written once; its epilogue
@@ -100,12 +100,12 @@
 // index outside [0, ns) sets *err and writes NaN for that query instead of
 // reading out of bounds; the host reads the flag after a run.
 //
-// C interface (ctypes): quad_gather_f32 / quad_gather_f64 launch on the
-// given stream and return cudaGetLastError().  `variant` names the
-// kernel: 0 tiled (the shape must be one it is built for), 1 generic, 2
+// C interface (ctypes, bound by ops/_build.load): quad_gather_f32 /
+// quad_gather_f64 launch on the given stream and return
+// cudaGetLastError().  `variant` names the kernel, which ops/quad_gather.py
+// picks from the shape, dtype and alignment alone: 0 tiled (the shape must be one it is built for), 1 generic, 2
 // wide.  quad_gather_rows_f32 / _f64 launch the multi-row gather the same
-// way: `variant` 0 tiled (`dedup` 0 every slot copies its row, 1 a warp's
-// lanes share a row's copy), 1 simple.  quad_gather_bwd_w_f32 / _f64 and
+// way: `variant` 0 tiled, 1 simple.  quad_gather_bwd_w_f32 / _f64 and
 // quad_gather_rows_bwd_w_f32 / _f64 launch the backward with respect to
 // the weights (the end of this file): `variant` 0 tiled (a shape of the
 // tiled forward, operands on 16 bytes), 1 the first design (generic for
@@ -778,9 +778,9 @@ size_t rows_tiled_smem(int nf) {
 }
 
 // A persistent grid; slot t of tile k is (query k Q + t / R, row t % R),
-// element k kRowsSlots + t of idx.  DEDUP: lanes of a warp with one row
-// share a copy; else every slot copies its row
-template <typename T, int R, int NC, bool DEDUP, class Epi>
+// element k kRowsSlots + t of idx; lanes of a warp with one row share a
+// copy
+template <typename T, int R, int NC, class Epi>
 __device__ __forceinline__ void rows_pipeline(const T* __restrict__ table,
                                               const int32_t* __restrict__ idx,
                                               const T* __restrict__ x,
@@ -825,22 +825,18 @@ __device__ __forceinline__ void rows_pipeline(const T* __restrict__ table,
 
   // stage s takes the fetched tile: the operand to shared memory, the
   // slot's row copied to the slot's own place in the stage unless another
-  // slot of the warp with that row copies it (DEDUP), the stage's barrier
+  // slot of the warp with that row copies it, the stage's barrier
   // armed with the bytes of the copies
   auto issue = [&](int s) {
     const bool valid = live && row >= 0 && row < ns;
     if (live && !valid) atomicExch(err, 1);
     epi.store(s_x + s * xlen, t, live);
-    bool copy = valid;
-    int slot = valid ? t : -1;   // where the slot's row lands
-    if constexpr (DEDUP) {
-      // lanes naming the same row share the copy of the lowest of them
-      const unsigned peers = __match_any_sync(0xffffffffu, valid ? row : -1);
-      const int lead = __ffs(peers) - 1;
-      const int lane = t & 31;
-      copy = valid && lead == lane;
-      if (valid) slot = t - lane + lead;
-    }
+    // lanes naming the same row share the copy of the lowest of them
+    const unsigned peers = __match_any_sync(0xffffffffu, valid ? row : -1);
+    const int lead = __ffs(peers) - 1;
+    const int lane = t & 31;
+    const bool copy = valid && lead == lane;
+    const int slot = valid ? t - lane + lead : -1;   // where its row lands
     // the stage's last reads were generic loads; order them before the
     // bulk copies that overwrite it
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -880,15 +876,15 @@ __device__ __forceinline__ void rows_pipeline(const T* __restrict__ table,
   }
 }
 
-template <typename T, int R, int NC, bool DEDUP>
+template <typename T, int R, int NC>
 __global__ void __launch_bounds__(kRowsSlots)
 quad_gather_rows_tiled(const T* __restrict__ table,
                        const int32_t* __restrict__ idx,
                        const T* __restrict__ w, T* __restrict__ out,
                        int* __restrict__ err, long long n, long long ns,
                        int nf) {
-  rows_pipeline<T, R, NC, DEDUP, RowsCombine<T, R, NC>>(table, idx, w, out,
-                                                        err, n, ns, nf);
+  rows_pipeline<T, R, NC, RowsCombine<T, R, NC>>(table, idx, w, out, err, n,
+                                                 ns, nf);
 }
 
 template <typename T, int R, int NC>
@@ -898,8 +894,8 @@ quad_gather_rows_bwd_w_tiled(const T* __restrict__ table,
                              const T* __restrict__ g, T* __restrict__ dw,
                              int* __restrict__ err, long long n, long long ns,
                              int nf) {
-  rows_pipeline<T, R, NC, true, RowsWeightGrad<T, R, NC>>(table, idx, g, dw,
-                                                          err, n, ns, nf);
+  rows_pipeline<T, R, NC, RowsWeightGrad<T, R, NC>>(table, idx, g, dw, err,
+                                                    n, ns, nf);
 }
 
 template <typename T, int R_, int NC_>
@@ -919,7 +915,7 @@ constexpr int kRowsMaxDevices = 64;
 // this row size, worked out on the first launch of each kernel, device and
 // row size (the set-up calls cost more than a small launch); 0 and the CUDA
 // error on failure
-template <typename T, int R, int NC, bool DEDUP, class Epi, typename Kernel>
+template <typename T, int R, int NC, class Epi, typename Kernel>
 long long rows_tiled_resident(Kernel kernel, int nf, int* rc) {
   constexpr int kSizes = kRowsMaxRowBytes / 16 + 1;
   static long long resident[kRowsMaxDevices][kSizes];   // 0: not yet known
@@ -952,14 +948,14 @@ long long rows_tiled_resident(Kernel kernel, int nf, int* rc) {
   return cached;
 }
 
-template <typename T, int R, int NC, bool DEDUP, class Epi, typename Kernel>
+template <typename T, int R, int NC, class Epi, typename Kernel>
 int launch_rows_tiled(Kernel kernel, const T* table, const int32_t* idx,
                       const T* x, T* out, int* err, long long n, long long ns,
                       int nf, cudaStream_t stream) {
   const size_t smem = rows_tiled_smem<T, R, NC, Epi>(nf);
   int rc = 0;
   const long long resident =
-      rows_tiled_resident<T, R, NC, DEDUP, Epi>(kernel, nf, &rc);
+      rows_tiled_resident<T, R, NC, Epi>(kernel, nf, &rc);
   if (resident == 0) return rc;
   constexpr int Q = kRowsSlots / R;
   const long long ntiles = (n + Q - 1) / Q;
@@ -969,22 +965,18 @@ int launch_rows_tiled(Kernel kernel, const T* table, const int32_t* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the forward with or without DEDUP, or (bwd) the weights' backward
+// the forward, or (bwd) the weights' backward
 template <typename T, int R, int NC>
 int launch_rows_tiled_as(const T* table, const int32_t* idx, const T* x,
                          T* out, int* err, long long n, long long ns, int nf,
-                         int dedup, bool bwd, cudaStream_t stream) {
+                         bool bwd, cudaStream_t stream) {
   if (bwd)
-    return launch_rows_tiled<T, R, NC, true, RowsWeightGrad<T, R, NC>>(
+    return launch_rows_tiled<T, R, NC, RowsWeightGrad<T, R, NC>>(
         quad_gather_rows_bwd_w_tiled<T, R, NC>, table, idx, x, out, err, n,
         ns, nf, stream);
-  if (dedup)
-    return launch_rows_tiled<T, R, NC, true, RowsCombine<T, R, NC>>(
-        quad_gather_rows_tiled<T, R, NC, true>, table, idx, x, out, err, n,
-        ns, nf, stream);
-  return launch_rows_tiled<T, R, NC, false, RowsCombine<T, R, NC>>(
-      quad_gather_rows_tiled<T, R, NC, false>, table, idx, x, out, err, n, ns,
-      nf, stream);
+  return launch_rows_tiled<T, R, NC, RowsCombine<T, R, NC>>(
+      quad_gather_rows_tiled<T, R, NC>, table, idx, x, out, err, n, ns, nf,
+      stream);
 }
 
 // the bulk-copy kernels' shapes and alignment: rows of whole 16-byte pieces
@@ -993,7 +985,7 @@ int launch_rows_tiled_as(const T* table, const int32_t* idx, const T* x,
 template <typename T>
 int launch_rows_tiled_shape(const T* table, const int32_t* idx, const T* x,
                             T* out, int* err, long long n, long long ns,
-                            int r, int nc, int nf, int dedup, bool bwd,
+                            int r, int nc, int nf, bool bwd,
                             cudaStream_t stream) {
   const long long rowbytes = static_cast<long long>(nc) * nf * sizeof(T);
   if (rowbytes % 16 != 0 || rowbytes > kRowsMaxRowBytes ||
@@ -1004,24 +996,24 @@ int launch_rows_tiled_shape(const T* table, const int32_t* idx, const T* x,
   if (n == 0) return static_cast<int>(cudaGetLastError());
   if (r == 4 && nc == 2)
     return launch_rows_tiled_as<T, 4, 2>(table, idx, x, out, err, n, ns, nf,
-                                         dedup, bwd, stream);
+                                         bwd, stream);
   if (r == 8 && nc == 2)
     return launch_rows_tiled_as<T, 8, 2>(table, idx, x, out, err, n, ns, nf,
-                                         dedup, bwd, stream);
+                                         bwd, stream);
   if (r == 1 && nc == 1)
     return launch_rows_tiled_as<T, 1, 1>(table, idx, x, out, err, n, ns, nf,
-                                         dedup, bwd, stream);
+                                         bwd, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int launch_rows(const T* table, const int32_t* idx, const T* w, T* out,
                 int* err, long long n, long long ns, int r, int nc, int nf,
-                int variant, int dedup, void* stream_) {
+                int variant, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (variant == 0)
     return launch_rows_tiled_shape<T>(table, idx, w, out, err, n, ns, r, nc,
-                                      nf, dedup, false, stream);
+                                      nf, false, stream);
   if (n > 0) {
     if (r == 4 && nc == 2) {
       launch_rows_simple<T, 4, 2>(table, idx, w, out, err, n, ns, r, nc, nf,
@@ -1141,7 +1133,7 @@ int launch(const T* table, const int32_t* idx, const T* w, T* out, int* err,
 //  * quad_gather_rows_bwd_w_tiled<T, R, NC> ((R, NC) and rows as the tiled
 //    rows forward takes them, table and g 16-byte aligned): the forward's
 //    bulk-copy pipeline (persistent grid, indices a tile ahead, rows by
-//    cp.async.bulk into a two-stage mbarrier ring, warp dedup on) with the
+//    cp.async.bulk into a two-stage mbarrier ring, warp dedup) with the
 //    weight-gradient epilogue: the tile's Q nf values of g (one run) are
 //    fetched a tile ahead in coalesced 16-byte loads and staged in the
 //    ring beside the rows; one thread per (slot, corner) forms its dot from
@@ -1235,7 +1227,7 @@ int launch_bwd_w(const T* table, const int32_t* idx, const T* g, T* dw,
   if (variant == 0) {
     if (rows)
       return launch_rows_tiled_shape<T>(table, idx, g, dw, err, n, ns, r, nc,
-                                        nf, 1, true, stream);
+                                        nf, true, stream);
     if (reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(dw) % 16 != 0 ||
@@ -1311,17 +1303,15 @@ extern "C" int quad_gather_f64(const double* table, const int32_t* idx,
 extern "C" int quad_gather_rows_f32(const float* table, const int32_t* idx,
                                     const float* w, float* out, int* err,
                                     long long n, long long ns, int r, int nc,
-                                    int nf, int variant, int dedup,
-                                    void* stream) {
+                                    int nf, int variant, void* stream) {
   return launch_rows<float>(table, idx, w, out, err, n, ns, r, nc, nf,
-                            variant, dedup, stream);
+                            variant, stream);
 }
 
 extern "C" int quad_gather_rows_f64(const double* table, const int32_t* idx,
                                     const double* w, double* out, int* err,
                                     long long n, long long ns, int r, int nc,
-                                    int nf, int variant, int dedup,
-                                    void* stream) {
+                                    int nf, int variant, void* stream) {
   return launch_rows<double>(table, idx, w, out, err, n, ns, r, nc, nf,
-                             variant, dedup, stream);
+                             variant, stream);
 }

@@ -13,9 +13,8 @@ gradient, for the per-sample profile and for DELO; formal_solve decides,
 this wrapper only launches: it raises on operands the kernel does not take
 and has no CPU mode.
 
-The library is built with nvcc on first use into grtrans_tpu_torch/_build/
-(ops/_build, keyed by a hash of the source and flags; the set-up span
-"setup.kernels", the counter "kernel_builds").  Each launch counts
+The library is built with nvcc on first use and loaded by ops/_build (the
+set-up span "setup.kernels", the counter "kernel_builds").  Each launch counts
 "march.kernel.launches" and "march.kernel.launches.<f64|f32>".
 """
 
@@ -32,27 +31,10 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "formal_march.cu"
 # operations round them (the source says why)
 NVCC_FLAGS = ("-fmad=false",)
 
-_lib = None
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # lam, j, K, ok, I0, dlam64, out, then npix, npts, substeps and the stream
-ARGTYPES = [_P] * 7 + [_LL, _I, _I, _P]
-
-
-def load_library():
-    """Build (if needed) and load the march's library with its ctypes
-    signatures."""
-    global _lib
-    if _lib is None:
-        with obs.setup("kernels", source=SOURCE.name) as rec:
-            rec.attrs["built"] = not _build.library_path(
-                SOURCE, NVCC_FLAGS).exists()
-            lib = ctypes.CDLL(str(_build.build(SOURCE, NVCC_FLAGS)))
-            for suffix in ("_f32", "_f64"):
-                fn = getattr(lib, "formal_march" + suffix)
-                fn.argtypes = ARGTYPES
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+ARGTYPES = {f"formal_march_{sfx}": [_P] * 7 + [_LL, _I, _I, _P]
+            for sfx in ("f32", "f64")}
 
 
 def check_operands(lam, j, K, cell_ok, I0, dlam64):
@@ -100,15 +82,12 @@ def formal_march(lam, j, K, cell_ok, I0=None, substeps=1, dlam64=None):
     npix, npts = lam.shape
     out = torch.empty((npix, 4), dtype=lam.dtype, device=lam.device)
     name = "f64" if lam.dtype == torch.float64 else "f32"
-    fn = getattr(load_library(), "formal_march_" + name)
-    with torch.cuda.device(lam.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(lam.data_ptr(), j.data_ptr(), K.data_ptr(),
-                cell_ok.data_ptr(), None if I0 is None else I0.data_ptr(),
-                None if dlam64 is None else dlam64.data_ptr(),
-                out.data_ptr(), npix, npts, int(substeps), stream)
-    if rc != 0:
-        raise RuntimeError(f"formal_march launch failed: CUDA error {rc}")
+    lib = _build.load(SOURCE, NVCC_FLAGS, ARGTYPES)
+    _build.launch(getattr(lib, "formal_march_" + name), lam.device,
+                  lam.data_ptr(), j.data_ptr(), K.data_ptr(),
+                  cell_ok.data_ptr(), None if I0 is None else I0.data_ptr(),
+                  None if dlam64 is None else dlam64.data_ptr(),
+                  out.data_ptr(), npix, npts, int(substeps))
     obs.count("march.kernel.launches")
     obs.count(f"march.kernel.launches.{name}")
     return out

@@ -16,13 +16,13 @@ operands the kernels do not take and has no CPU mode.
 r and th are read contiguous (a strided view is copied first); the output
 is a new contiguous tensor of r's shape and dtype.
 
-The library is built with nvcc on first use into grtrans_tpu_torch/_build/
-(ops/_build, keyed by a hash of the source and flags; the set-up span
-"setup.kernels", the counter "kernel_builds").  Each launch counts
+The library is built with nvcc on first use and loaded by ops/_build (the
+set-up span "setup.kernels", the counter "kernel_builds").  Each launch counts
 "harmpi.invert.kernel.launches".
 """
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -35,40 +35,30 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "harmpi_invert.cu"
 # operations round them (the source says why)
 NVCC_FLAGS = ("-fmad=false",)
 
-_lib = None
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # the kernels' dtypes: (entry point suffix, ctypes scalar)
 SCALARS = {torch.float64: ("f64", ctypes.c_double),
            torch.float32: ("f32", ctypes.c_float)}
 # x1: r, out, n, params, lo, hi, iters, stream; x2: th, r, out, n, params,
-# iters, stream
+# iters, stream; and the length of struct Params
 ARGTYPES = {name.format(sfx): argtypes
             for sfx, T in SCALARS.values()
             for name, argtypes in (
                 ("harmpi_x1_of_r_{}", [_P, _P, _LL, _P, T, T, _I, _P]),
                 ("harmpi_x2_of_th_{}", [_P, _P, _P, _LL, _P, _I, _P]))}
+ARGTYPES["harmpi_invert_num_params"] = []
 
 
-def load_library():
-    """Build (if needed) and load the inversion's library with its ctypes
-    signatures."""
-    global _lib
-    if _lib is None:
-        with obs.setup("kernels", source=SOURCE.name) as rec:
-            rec.attrs["built"] = not _build.library_path(
-                SOURCE, NVCC_FLAGS).exists()
-            lib = ctypes.CDLL(str(_build.build(SOURCE, NVCC_FLAGS)))
-            for name, argtypes in ARGTYPES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.harmpi_invert_num_params.restype = ctypes.c_int
-            n = lib.harmpi_invert_num_params()
-            if n != len(PARAMS):
-                raise RuntimeError(f"{SOURCE.name} takes {n} parameters, "
-                                   f"the wrapper makes {len(PARAMS)}")
-            _lib = lib
-    return _lib
+@functools.cache
+def _library():
+    """The inversion's library (ops/_build.load), its struct Params held
+    to PARAMS once."""
+    lib = _build.load(SOURCE, NVCC_FLAGS, ARGTYPES)
+    n = lib.harmpi_invert_num_params()
+    if n != len(PARAMS):
+        raise RuntimeError(f"{SOURCE.name} takes {n} parameters, the "
+                           f"wrapper makes {len(PARAMS)}")
+    return lib
 
 
 # the order of csrc/harmpi_invert.cu's struct Params
@@ -123,12 +113,8 @@ def check_operands(*ts):
 
 
 def _launch(name, dtype, args, out):
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(load_library(), f"{name}_{SCALARS[dtype][0]}")(
-            *args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    _build.launch(getattr(_library(), f"{name}_{SCALARS[dtype][0]}"),
+                  out.device, *args)
     obs.count("harmpi.invert.kernel.launches")
     return out
 

@@ -13,23 +13,21 @@ takes CPU tensors to its plain PyTorch version (`quad_gather_ref`,
 `quad_gather_rows_ref`) and CUDA tensors to the hand-written kernels in
 csrc/quad_gather.cu; there is no fallback between the two.
 
-quad_gather has three kernels: a tiled one for the narrow shapes in use,
-`TILED_SHAPES` (FFJET 4x9, the POLSYNCHPL cutoff table 2x6 and its
-per-sample-p form 4x6, HARM 4x10, KORAL 4x11, SPHACC 2x2, NUMDISK 4x1),
-which needs 16-byte aligned operands; a wide-row one (a warp a query) for
-nf >= 32 (PHATDISK's 2x101); and a generic one (one thread per output
-element) for everything else.  `gather_kernel` picks by shape and
-alignment; `generic=True` forces the generic kernel so that it can be timed
-against the others.
+The kernel is chosen from what the call shows, its shape, dtype and
+alignment, and from nothing else.  quad_gather has three kernels: a tiled
+one for the narrow shapes in use, `TILED_SHAPES` (FFJET 4x9, the
+POLSYNCHPL cutoff table 2x6 and its per-sample-p form 4x6, HARM 4x10,
+KORAL 4x11, SPHACC 2x2, NUMDISK 4x1), which needs 16-byte aligned
+operands; a wide-row one (a warp a query) for nf >= `WIDE_MIN_NF`
+(PHATDISK's 2x101); and a generic one (one thread per output element)
+for everything else.  `gather_kernel` picks.
 
 quad_gather_rows has two: a tiled one (persistent blocks, the rows of a
 tile copied to shared memory by Hopper bulk copies, two tiles in flight,
 lanes of a warp that name one row sharing its copy) for the (R, nc) of
 `ROWS_TILED_SHAPES` with rows that are whole 16-byte pieces of a 16-byte
 aligned table, and the simple one (sixteen lanes a query) for anything
-else.  `rows_kernel` picks; `simple=True` forces the simple kernel and
-`dedup=False` the tiled kernel without the warp's sharing of copies, so
-that they can be timed; the port runs the default, `dedup=True`.
+else, the binned populations among them.  `rows_kernel` picks.
 
 Gradients: each wrapper is a torch.autograd.Function wherever its
 weights carry a gradient.  The backward with respect to the weights,
@@ -46,21 +44,17 @@ differentiates one, so the scatter-add that would need is not written).
 Each backward has two kernels: a tiled one on its forward's pipeline (the
 R = 1 tile pipeline for `TILED_SHAPES`, the bulk-copy ring with warp dedup
 for `ROWS_TILED_SHAPES`; table, g and dw on 16 bytes) and the first
-design (a thread a weight, any shape), "generic" for R = 1 and "simple"
-for rows.  `bwd_kernel` / `rows_bwd_kernel` pick; `generic=True` /
-`simple=True` force the first design so that the two can be timed against
-each other.
+design (a thread a weight, any shape or alignment), "generic" for R = 1
+and "simple" for rows.  `bwd_kernel` / `rows_bwd_kernel` pick.
 
-The library is compiled with nvcc on first use into
-grtrans_tpu_torch/_build/ (ops/_build, keyed by a hash of its source and
-flags) and bound with ctypes (the set-up span "setup.kernels"; the counter
-"kernel_builds" counts nvcc runs).  Each of the four wrappers is the span "gather" and
-counts its queries ("gather.queries") and, in the obs counters, its
-kernel launches ("<wrapper>.launches"), split by kernel
-("<wrapper>.launches.tiled", ...) and by instantiation
-("<wrapper>.launches.f64", "<wrapper>.launches.f32").  The plain twins
-count their calls ("<twin>.calls"), so that a run can show that no path on
-the card reached them.
+The library is built with nvcc on first use and loaded by ops/_build (the
+set-up span "setup.kernels"; the counter "kernel_builds" counts nvcc
+runs).  Each of the four wrappers is the span "gather" and counts its
+queries ("gather.queries") and, in the obs counters, its kernel launches
+("<wrapper>.launches"), split by kernel ("<wrapper>.launches.tiled", ...)
+and by instantiation ("<wrapper>.launches.f64", "<wrapper>.launches.f32").
+The plain twins count their calls ("<twin>.calls"), so that a run can show
+that no path on the card reached them.
 """
 
 import ctypes
@@ -72,10 +66,22 @@ import torch
 from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.ops import _build
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "quad_gather.cu"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "quad_gather.cu"
+NVCC_FLAGS = ()
 
-_lib = None
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C interface's argument types (the _f32 and _f64 alike): table, idx,
+# x, out, err, then the sizes, the kernel variant and the stream
+ARGTYPES = {f"{name}_{sfx}": argtypes
+            for sfx in ("f32", "f64")
+            for name, argtypes in (
+                ("quad_gather", [_P] * 5 + [_LL, _I, _I, _I, _I, _P]),
+                ("quad_gather_rows", [_P] * 5 + [_LL, _LL, _I, _I, _I, _I,
+                                                 _P]),
+                ("quad_gather_bwd_w", [_P] * 5 + [_LL, _LL, _I, _I, _I, _P]),
+                ("quad_gather_rows_bwd_w", [_P] * 5 + [_LL, _LL, _I, _I, _I,
+                                                       _I, _P]))}
+
 _err_flags = {}
 
 
@@ -139,6 +145,22 @@ def quad_gather_bwd_w_ref(table, idx, g, nc, nf):
     return (table[idx.long()].view(n, nc, nf) * g[:, None, :]).sum(-1)
 
 
+def quad_gather_rows_ref(table, idx, w, nc, nf):
+    """Plain PyTorch version: the R gathered rows of each query, viewed
+    (N, R, nc, nf), weighted and summed over rows and corners."""
+    obs.count("quad_gather_rows_ref.calls")
+    n, r = idx.shape
+    rows = table[idx.long().reshape(-1)].view(n, r, nc, nf)
+    return (rows * w[..., None]).sum((1, 2))
+
+
+def quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf):
+    """Plain PyTorch version of the weights' gradient: (N, R, nc)."""
+    obs.count("quad_gather_rows_bwd_w_ref.calls")
+    n, r = idx.shape
+    rows = table[idx.long().reshape(-1)].view(n, r, nc, nf)
+    return (rows * g[:, None, None, :]).sum(-1)
+
 
 def _check_operands(table, idx, x, nc, nf, rows, grad=False):
     """Raise unless table is (NS, nc*nf) float32/float64, idx an int32
@@ -181,58 +203,104 @@ def _differentiable(table, w):
     return w.requires_grad
 
 
-class _QuadGather(torch.autograd.Function):
-    """quad_gather with the weights' gradient from quad_gather_bwd_w."""
+def quad_gather(table, idx, w, nc, nf):
+    """table (NS, nc*nf) float32/float64; idx (N,) int32; w (N, nc) of the
+    table's dtype; all contiguous on one device.  Returns (N, nf),
+    differentiable in w."""
+    _check_operands(table, idx, w, nc, nf, rows=False)
+    return _call("quad_gather", quad_gather_ref, gather_kernel, table, idx,
+                 w, nc, nf, backward=quad_gather_bwd_w)
+
+
+def quad_gather_rows(table, idx, w, nc, nf):
+    """table (NS, nc*nf) float32/float64; idx (N, R) int32; w (N, R, nc) of
+    the table's dtype; all contiguous on one device.  Returns (N, nf),
+    differentiable in w."""
+    _check_operands(table, idx, w, nc, nf, rows=True)
+    return _call("quad_gather_rows", quad_gather_rows_ref, rows_kernel,
+                 table, idx, w, nc, nf, backward=quad_gather_rows_bwd_w)
+
+
+def quad_gather_bwd_w(table, idx, g, nc, nf):
+    """The gradient of quad_gather with respect to its weights, given the
+    output's gradient g (N, nf): dw (N, nc).  The kernel `bwd_kernel`
+    picks on the card, the plain version on the CPU."""
+    _check_operands(table, idx, g, nc, nf, rows=False, grad=True)
+    return _call("quad_gather_bwd_w", quad_gather_bwd_w_ref, bwd_kernel,
+                 table, idx, g, nc, nf)
+
+
+def quad_gather_rows_bwd_w(table, idx, g, nc, nf):
+    """The gradient of quad_gather_rows with respect to its weights, given
+    the output's gradient g (N, nf): dw (N, R, nc).  The kernel
+    `rows_bwd_kernel` picks on the card, the plain version on the CPU."""
+    _check_operands(table, idx, g, nc, nf, rows=True, grad=True)
+    return _call("quad_gather_rows_bwd_w", quad_gather_rows_bwd_w_ref,
+                 rows_bwd_kernel, table, idx, g, nc, nf)
+
+
+def _call(op, twin, pick, table, idx, x, nc, nf, backward=None):
+    """The checked wrapper `op` on the weights (or, for a backward wrapper,
+    with no `backward` of its own, the output's gradient) x: counted and
+    spanned; recorded for autograd, with `backward` the weights' gradient,
+    where the weights require one.  `twin` and `pick` as _run."""
+    obs.count("gather.queries", idx.shape[0])
+    with obs.span("gather", op=op):
+        if backward is not None and _differentiable(table, x):
+            return _Gather.apply(op, twin, pick, backward, table, idx, x,
+                                 nc, nf)
+        return _run(op, twin, pick, backward is None, table, idx, x, nc, nf)
+
+
+class _Gather(torch.autograd.Function):
+    """A forward wrapper with the weights' gradient from its backward
+    wrapper."""
 
     @staticmethod
-    def forward(ctx, table, idx, w, nc, nf, generic):
+    def forward(ctx, op, twin, pick, backward, table, idx, w, nc, nf):
         ctx.save_for_backward(table, idx)
+        ctx.backward = backward
         ctx.shape = nc, nf
-        return _gather(table, idx, w, nc, nf, generic)
+        return _run(op, twin, pick, False, table, idx, w, nc, nf)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         table, idx = ctx.saved_tensors
-        dw = quad_gather_bwd_w(table, idx, g.contiguous(), *ctx.shape)
-        return None, None, dw, None, None, None
+        dw = ctx.backward(table, idx, g.contiguous(), *ctx.shape)
+        return None, None, None, None, None, None, dw, None, None
 
 
-def _gather(table, idx, w, nc, nf, generic):
+def _run(op, twin, pick, grad, table, idx, x, nc, nf):
+    """The plain `twin` on the CPU; on the card, one launch of `op`'s
+    kernel that `pick` chooses for this shape, dtype and alignment, into a
+    new output (dw where `grad`: x is then the output's gradient),
+    counted."""
     if table.device.type == "cpu":
-        return quad_gather_ref(table, idx, w, nc, nf)
-    return _launch(table, idx, w, nc, nf, generic)
+        return twin(table, idx, x, nc, nf)
+    n, ns = idx.shape[0], table.shape[0]
+    out = torch.empty((*idx.shape, nc) if grad else (n, nf),
+                      dtype=table.dtype, device=table.device)
+    if idx.dim() == 2:
+        r = idx.shape[1]
+        # the bulk copy reads the table's rows (and, backward, g) in
+        # 16-byte pieces; out is new, so always aligned
+        kernel = pick(r, nc, nf, table.element_size(),
+                      _aligned(table, x) if grad else _aligned(table))
+        sizes = (n, ns, r, nc, nf, _ROWS_KERNELS.index(kernel))
+    else:
+        kernel = pick(nc, nf, _aligned(table, x, out))
+        sizes = (n, ns, nc, nf, _KERNELS.index(kernel))
+    lib = _build.load(SOURCE, NVCC_FLAGS, ARGTYPES)
+    _build.launch(getattr(lib, f"{op}_{dtype_name(table)}"), table.device,
+                  table.data_ptr(), idx.data_ptr(), x.data_ptr(),
+                  out.data_ptr(), error_flag(table.device).data_ptr(),
+                  *sizes)
+    obs.count(f"{op}.launches")
+    obs.count(f"{op}.launches.{kernel}")
+    obs.count(f"{op}.launches.{dtype_name(table)}")
+    return out
 
-
-def quad_gather(table, idx, w, nc, nf, generic=False):
-    """table (NS, nc*nf) float32/float64; idx (N,) int32; w (N, nc) of the
-    table's dtype; all contiguous on one device.  Returns (N, nf),
-    differentiable in w."""
-    _check_operands(table, idx, w, nc, nf, rows=False)
-    obs.count("gather.queries", idx.shape[0])
-    with obs.span("gather", op="quad_gather"):
-        if _differentiable(table, w):
-            return _QuadGather.apply(table, idx, w, nc, nf, generic)
-        return _gather(table, idx, w, nc, nf, generic)
-
-
-def quad_gather_bwd_w(table, idx, g, nc, nf, generic=False):
-    """The gradient of quad_gather with respect to its weights, given the
-    output's gradient g (N, nf): dw (N, nc).  The kernel on the card (the
-    one `bwd_kernel` picks; `generic` forces the first design, for timing),
-    the plain version on the CPU."""
-    _check_operands(table, idx, g, nc, nf, rows=False, grad=True)
-    obs.count("gather.queries", idx.shape[0])
-    with obs.span("gather", op="quad_gather_bwd_w"):
-        if table.device.type == "cpu":
-            return quad_gather_bwd_w_ref(table, idx, g, nc, nf)
-        n = idx.shape[0]
-        dw = torch.empty((n, nc), dtype=table.dtype, device=table.device)
-        kernel = bwd_kernel(nc, nf, _aligned(table, g, dw), generic)
-        _launch_bwd("quad_gather_bwd_w", table, idx, g, dw,
-                    (n, table.shape[0], nc, nf, _KERNELS.index(kernel)))
-        _count_launch("quad_gather_bwd_w", kernel, table)
-        return dw
 
 TILED_SHAPES = ((4, 9), (2, 6), (4, 6), (4, 10), (4, 11), (2, 2), (4, 1))
 WIDE_MIN_NF = 32
@@ -245,11 +313,9 @@ def _aligned(*tensors):
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def gather_kernel(nc, nf, aligned, generic=False):
+def gather_kernel(nc, nf, aligned):
     """The quad_gather kernel for a (nc, nf) table: "tiled", "wide" or
     "generic".  `aligned`: table, weights and output start on 16 bytes."""
-    if generic:
-        return "generic"
     if (nc, nf) in TILED_SHAPES and aligned:
         return "tiled"
     if nf >= WIDE_MIN_NF and nc <= 32:
@@ -257,129 +323,14 @@ def gather_kernel(nc, nf, aligned, generic=False):
     return "generic"
 
 
-def bwd_kernel(nc, nf, aligned, generic=False):
+def bwd_kernel(nc, nf, aligned):
     """The quad_gather_bwd_w kernel for a (nc, nf) table: "tiled" (the
     forward's tile pipeline) or "generic" (the first design, any shape).
     `aligned`: table, g and dw start on 16 bytes.  No gradient path
     launches the wide-row shapes, so there is no wide backward."""
-    if generic or (nc, nf) not in TILED_SHAPES or not aligned:
+    if (nc, nf) not in TILED_SHAPES or not aligned:
         return "generic"
     return "tiled"
-
-
-def quad_gather_rows_ref(table, idx, w, nc, nf):
-    """Plain PyTorch version: the R gathered rows of each query, viewed
-    (N, R, nc, nf), weighted and summed over rows and corners."""
-    obs.count("quad_gather_rows_ref.calls")
-    n, r = idx.shape
-    rows = table[idx.long().reshape(-1)].view(n, r, nc, nf)
-    return (rows * w[..., None]).sum((1, 2))
-
-
-def quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf):
-    """Plain PyTorch version of the weights' gradient: (N, R, nc)."""
-    obs.count("quad_gather_rows_bwd_w_ref.calls")
-    n, r = idx.shape
-    rows = table[idx.long().reshape(-1)].view(n, r, nc, nf)
-    return (rows * g[:, None, None, :]).sum(-1)
-
-
-
-class _QuadGatherRows(torch.autograd.Function):
-    """quad_gather_rows with the weights' gradient from
-    quad_gather_rows_bwd_w."""
-
-    @staticmethod
-    def forward(ctx, table, idx, w, nc, nf, simple, dedup):
-        ctx.save_for_backward(table, idx)
-        ctx.shape = nc, nf
-        return _gather_rows(table, idx, w, nc, nf, simple, dedup)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        table, idx = ctx.saved_tensors
-        dw = quad_gather_rows_bwd_w(table, idx, g.contiguous(), *ctx.shape)
-        return None, None, dw, None, None, None, None
-
-
-def quad_gather_rows(table, idx, w, nc, nf, simple=False, dedup=True):
-    """table (NS, nc*nf) float32/float64; idx (N, R) int32; w (N, R, nc) of
-    the table's dtype; all contiguous on one device.  Returns (N, nf),
-    differentiable in w.  `simple` and `dedup` (lanes of a warp that name
-    one row share its copy) only choose among the CUDA kernels."""
-    _check_operands(table, idx, w, nc, nf, rows=True)
-    obs.count("gather.queries", idx.shape[0])
-    with obs.span("gather", op="quad_gather_rows"):
-        if _differentiable(table, w):
-            return _QuadGatherRows.apply(table, idx, w, nc, nf, simple,
-                                         dedup)
-        return _gather_rows(table, idx, w, nc, nf, simple, dedup)
-
-
-def quad_gather_rows_bwd_w(table, idx, g, nc, nf, simple=False):
-    """The gradient of quad_gather_rows with respect to its weights, given
-    the output's gradient g (N, nf): dw (N, R, nc).  The kernel on the card
-    (the one `rows_bwd_kernel` picks; `simple` forces the first design, for
-    timing), the plain version on the CPU."""
-    _check_operands(table, idx, g, nc, nf, rows=True, grad=True)
-    obs.count("gather.queries", idx.shape[0])
-    with obs.span("gather", op="quad_gather_rows_bwd_w"):
-        if table.device.type == "cpu":
-            return quad_gather_rows_bwd_w_ref(table, idx, g, nc, nf)
-        n, r = idx.shape
-        dw = torch.empty((n, r, nc), dtype=table.dtype, device=table.device)
-        kernel = rows_bwd_kernel(r, nc, nf, table.element_size(),
-                                 _aligned(table, g), simple)
-        _launch_bwd("quad_gather_rows_bwd_w", table, idx, g, dw,
-                    (n, table.shape[0], r, nc, nf,
-                     _ROWS_KERNELS.index(kernel)))
-        _count_launch("quad_gather_rows_bwd_w", kernel, table)
-        return dw
-
-
-def _count_launch(wrapper, kernel, table):
-    """Count one launch of `wrapper`, by kernel and by instantiation."""
-    obs.count(f"{wrapper}.launches")
-    obs.count(f"{wrapper}.launches.{kernel}")
-    obs.count(f"{wrapper}.launches.{dtype_name(table)}")
-
-
-def _launch_bwd(name, table, idx, g, dw, sizes):
-    """Launch the backward kernel `name` on the current stream; `sizes`
-    are the C function's size arguments and the kernel variant."""
-    lib = load_library()
-    fn = getattr(lib, name + ("_f64" if table.dtype == torch.float64
-                              else "_f32"))
-    err = error_flag(table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), idx.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                err.data_ptr(), *sizes, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
-def _gather_rows(table, idx, w, nc, nf, simple, dedup):
-    if table.device.type == "cpu":
-        return quad_gather_rows_ref(table, idx, w, nc, nf)
-    lib = load_library()
-    n, r = idx.shape
-    out = torch.empty((n, nf), dtype=table.dtype, device=table.device)
-    err = error_flag(table.device)
-    kernel = rows_kernel(r, nc, nf, table.element_size(),
-                         table.data_ptr() % 16 == 0, simple)
-    fn = (lib.quad_gather_rows_f64 if table.dtype == torch.float64
-          else lib.quad_gather_rows_f32)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                out.data_ptr(), err.data_ptr(), n, table.shape[0], r, nc, nf,
-                _ROWS_KERNELS.index(kernel), int(dedup), stream)
-    if rc != 0:
-        raise RuntimeError(f"quad_gather_rows launch failed: CUDA error {rc}")
-    _count_launch("quad_gather_rows", kernel, table)
-    return out
 
 
 # (R, nc): the snapshot's trilinear cell, slow light, HARMPI.  The binned
@@ -391,13 +342,13 @@ ROWS_MAX_ROW_BYTES = 256    # two tiles of rows in shared memory
 _ROWS_KERNELS = ("tiled", "simple")
 
 
-def rows_kernel(r, nc, nf, itemsize, table_aligned, simple=False):
+def rows_kernel(r, nc, nf, itemsize, table_aligned):
     """The quad_gather_rows kernel for R rows of a (nc, nf) table of
     `itemsize`-byte elements: "tiled" where each row is a whole number of
     16-byte pieces (the bulk copy's unit) of a 16-byte aligned table,
     "simple" otherwise."""
     rowbytes = nc * nf * itemsize
-    if simple or (r, nc) not in ROWS_TILED_SHAPES or not table_aligned \
+    if (r, nc) not in ROWS_TILED_SHAPES or not table_aligned \
             or rowbytes % 16 or rowbytes > ROWS_MAX_ROW_BYTES:
         return "simple"
     return "tiled"
@@ -420,56 +371,3 @@ def error_flag(device):
         flag = _err_flags[device] = torch.zeros(1, dtype=torch.int32,
                                                 device=device)
     return flag
-
-
-def _launch(table, idx, w, nc, nf, generic):
-    lib = load_library()
-    n = idx.shape[0]
-    out = torch.empty((n, nf), dtype=table.dtype, device=table.device)
-    err = error_flag(table.device)
-    # the tiled kernel moves 16-byte pieces; the others take any alignment
-    kernel = gather_kernel(nc, nf, _aligned(table, w, out), generic)
-    variant = _KERNELS.index(kernel)
-    fn = (lib.quad_gather_f64 if table.dtype == torch.float64
-          else lib.quad_gather_f32)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                out.data_ptr(), err.data_ptr(), n, table.shape[0], nc, nf,
-                variant, stream)
-    if rc != 0:
-        raise RuntimeError(f"quad_gather launch failed: CUDA error {rc}")
-    _count_launch("quad_gather", kernel, table)
-    return out
-
-
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# the C interface's argument types, by function (the _f32 and _f64 alike):
-# table, idx, x, out, err, then the sizes, the variant and the stream
-ARGTYPES = {
-    "quad_gather": [_P] * 5 + [_LL, _I, _I, _I, _I, _P],
-    "quad_gather_rows": [_P] * 5 + [_LL, _LL, _I, _I, _I, _I, _I, _P],
-    "quad_gather_bwd_w": [_P] * 5 + [_LL, _LL, _I, _I, _I, _P],
-    "quad_gather_rows_bwd_w": [_P] * 5 + [_LL, _LL, _I, _I, _I, _I, _P],
-}
-
-
-def bind(lib, names=tuple(ARGTYPES)):
-    """Give the library's functions `names` their ctypes signatures."""
-    for name in names:
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, name + suffix)
-            fn.argtypes = ARGTYPES[name]
-            fn.restype = ctypes.c_int
-    return lib
-
-
-def load_library():
-    """Build (if needed) and load the kernel library with its ctypes
-    signatures."""
-    global _lib
-    if _lib is None:
-        with obs.setup("kernels") as rec:
-            rec.attrs["built"] = not _build.library_path(SOURCE).exists()
-            _lib = bind(ctypes.CDLL(str(_build.build(SOURCE))))
-    return _lib

@@ -4,19 +4,20 @@ each other on one NVIDIA card.
     git show REV:grtrans_tpu_torch/csrc/quad_gather.cu > base.cu
     python3 scripts/kernel_ab.py --base base.cu [--reps 20] [--json out.json]
 
-Both sources are built with the port's nvcc flags (ops/_build.build)
-and loaded side by side.  Each forward kernel the port's render paths run
-(tiled quad_gather at FFJET 4x9 f64 / f32, POLSYNCHPL 2x6, HARM 4x10,
+Both sources are built with the port's nvcc flags and loaded side by side
+(ops/_build.load); the base must have the current source's C interface
+(ops/quad_gather.ARGTYPES), and a base whose extern "C" declarations differ
+from it is refused before it is built.  Each forward kernel the port's render paths
+run (tiled quad_gather at FFJET 4x9 f64 / f32, POLSYNCHPL 2x6, HARM 4x10,
 KORAL 4x11; tiled quad_gather_rows at the snapshot's R = 4 of 2x10 in f64
-and f32, with warp dedup, on 4e6 random rows) is launched through both
-libraries' C interfaces on the same operands, its outputs held equal, and
+and f32, on 4e6 random rows) is launched through both libraries' C
+interfaces on the same operands, its outputs held equal, and
 timed with CUDA events in the order base, new, new, base.  Prints a line a
 shape, the card's name and power limit, and (with --json) writes the
 times.
 """
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -58,24 +59,14 @@ def ms_of(fn, reps):
 
 def launcher(lib, table, idx, w, out, err, r, nc, nf):
     """fn() launching the tiled forward kernel of `lib` on the operands."""
-    suffix = "_f64" if table.dtype == torch.float64 else "_f32"
-    stream = torch.cuda.current_stream().cuda_stream
-    n = idx.shape[0]
-    if r is None:
-        fn = getattr(lib, "quad_gather" + suffix)
-        args = (table.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                out.data_ptr(), err.data_ptr(), n, table.shape[0], nc, nf, 0,
-                stream)
-    else:
-        fn = getattr(lib, "quad_gather_rows" + suffix)
-        args = (table.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                out.data_ptr(), err.data_ptr(), n, table.shape[0], r, nc, nf,
-                0, 1, stream)
+    name = "quad_gather" if r is None else "quad_gather_rows"
+    fn = getattr(lib, f"{name}_{qg.dtype_name(table)}")
+    sizes = () if r is None else (r,)
+    args = (table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+            err.data_ptr(), idx.shape[0], table.shape[0], *sizes, nc, nf, 0)
 
     def run():
-        rc = fn(*args)
-        if rc != 0:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
+        _build.launch(fn, table.device, *args)
     return run
 
 
@@ -92,9 +83,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    libs = {"base": qg.bind(ctypes.CDLL(str(_build.build(args.base))),
-                            ("quad_gather", "quad_gather_rows")),
-            "new": qg.load_library()}
+    libs = {k: _build.load(src, qg.NVCC_FLAGS, qg.ARGTYPES)
+            for k, src in (("base", args.base), ("new", qg.SOURCE))}
     dev = torch.device("cuda", 0)
     err = qg.error_flag(dev)
     rng = np.random.default_rng(0)

@@ -39,14 +39,26 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _unaligned(t):
+    """A contiguous copy of t that starts one element past 16 bytes: an
+    operand the tiled kernels cannot take, so the pickers send it to the
+    generic, simple or first-design kernel."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    out = flat[1:].view(t.shape)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 31, 4099, 4_000_007])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("ns,nc,nf", [(16384, 4, 9), (201, 2, 6), (77, 3, 5)],
                          ids=["ffjet", "polsynchpl", "generic"])
 def test_quad_gather_kernel_matches_plain(dev, dtype, ns, nc, nf, n):
-    """The tiled kernel (ffjet, polsynchpl shapes) and the generic one, at
-    query counts ragged against the 128-query tile."""
+    """The tiled kernel (ffjet, polsynchpl shapes) and the generic one (the
+    other shape, and every shape with weights off 16 bytes), at query
+    counts ragged against the 128-query tile."""
     rng = np.random.default_rng(0)
     table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
                             device=dev)
@@ -63,8 +75,10 @@ def test_quad_gather_kernel_matches_plain(dev, dtype, ns, nc, nf, n):
     assert out.shape == (n, nf) and out.dtype == dtype
     err = (out - ref).abs().max().item()
     assert err <= TOL[dtype] * ref.abs().max().item()
-    forced = qg.quad_gather(table, idx, w, nc, nf, generic=True)
-    assert (forced - ref).abs().max().item() <= TOL[dtype] * \
+    generic = obs.counters()["quad_gather.launches.generic"]
+    off = qg.quad_gather(table, idx, _unaligned(w), nc, nf)
+    assert obs.counters()["quad_gather.launches.generic"] == generic + 1
+    assert (off - ref).abs().max().item() <= TOL[dtype] * \
         ref.abs().max().item()
 
 
@@ -106,8 +120,8 @@ def test_quad_gather_flags_out_of_range_rows(dev, nc, nf):
 @pytest.mark.parametrize("n", [1, 127, 1024 * 1024 + 3])
 def test_quad_gather_at_the_phatdisk_shape(dev, n):
     """PHATDISK's pair-packed table, (500, 2 x 101) float64: the wide-row
-    kernel the wrapper picks and the generic one, at query counts ragged
-    against their blocks."""
+    kernel the wrapper picks, with weights on 16 bytes and off them, at
+    query counts ragged against its blocks."""
     rng = np.random.default_rng(2)
     table = torch.as_tensor(rng.standard_normal((500, 202)), device=dev)
     idx = torch.as_tensor(rng.integers(0, 499, n), dtype=torch.int32,
@@ -123,9 +137,9 @@ def test_quad_gather_at_the_phatdisk_shape(dev, n):
     assert out.shape == (n, 101)
     assert (out - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
     wide = obs.counters()["quad_gather.launches.wide"]
-    forced = qg.quad_gather(table, idx, w, 2, 101, generic=True)
-    assert obs.counters()["quad_gather.launches.wide"] == wide
-    assert (forced - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
+    off = qg.quad_gather(table, idx, _unaligned(w), 2, 101)
+    assert obs.counters()["quad_gather.launches.wide"] == wide + 1
+    assert (off - ref).abs().max().item() <= 1e-14 * ref.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -221,7 +235,8 @@ def test_wide_row_kernel_matches_plain(dev, dtype, nc, nf):
 def test_quad_gather_rows_kernel_matches_plain(dev, dtype, r, nc, nf, n):
     """Every instantiation of the simple quad_gather_rows kernel and its
     run-time (R, nc) form, at query counts ragged against the 16 queries of
-    a block (the tiled kernel: test_quad_gather_rows_tiled_kernel_*)."""
+    a block: a table one element past 16 bytes goes to the simple kernel
+    at every shape (the tiled kernel: test_quad_gather_rows_tiled_kernel_*)."""
     rng = np.random.default_rng(5)
     ns = 5000
     table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
@@ -230,9 +245,10 @@ def test_quad_gather_rows_kernel_matches_plain(dev, dtype, r, nc, nf, n):
                           device=dev)
     w = torch.as_tensor(rng.uniform(0.0, 1.0, (n, r, nc)), dtype=dtype,
                         device=dev)
+    table = _unaligned(table)
     before = obs.counters()["quad_gather_rows.launches"]
     simple = obs.counters()["quad_gather_rows.launches.simple"]
-    out = qg.quad_gather_rows(table, idx, w, nc, nf, simple=True)
+    out = qg.quad_gather_rows(table, idx, w, nc, nf)
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
     assert obs.counters()["quad_gather_rows.launches"] == before + 1
@@ -247,14 +263,15 @@ def test_quad_gather_rows_kernel_matches_plain(dev, dtype, r, nc, nf, n):
 @pytest.mark.parametrize("r,nc", [(4, 2), (3, 2)], ids=["unrolled", "runtime"])
 def test_quad_gather_rows_flags_out_of_range_rows(dev, r, nc):
     nf = 10
-    table = torch.ones((16, nc * nf), dtype=torch.float64, device=dev)
+    table = _unaligned(torch.ones((16, nc * nf), dtype=torch.float64,
+                                  device=dev))
     idx = torch.zeros((4, r), dtype=torch.int32, device=dev)
     idx[1, r - 1] = 16
     idx[2, 0] = -1
     w = torch.ones((4, r, nc), dtype=torch.float64, device=dev)
     flag = qg.error_flag(dev)
     try:
-        out = qg.quad_gather_rows(table, idx, w, nc, nf, simple=True)
+        out = qg.quad_gather_rows(table, idx, w, nc, nf)
         torch.cuda.synchronize()
         assert flag.item() == 1
         assert torch.isnan(out[1:3]).all()
@@ -302,20 +319,19 @@ ROWS_TOL = {torch.float32: 2e-6, torch.float64: 1e-14}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dedup", [True, False], ids=["warp", "none"])
 @pytest.mark.parametrize("n", [1, 63, 4099, 1_000_003])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("r,nc,nf", [(4, 2, 10), (8, 2, 10), (1, 1, 12)],
                          ids=["trilinear", "slowlight", "nearest"])
 def test_quad_gather_rows_tiled_kernel_matches_plain(dev, dtype, r, nc, nf,
-                                                     n, dedup):
-    """Every (R, nc) instantiation of the tiled (bulk-copy) kernel, with and
-    without deduplication, at query counts ragged against its tiles of
-    128 / R queries and against its persistent grid."""
+                                                     n):
+    """Every (R, nc) instantiation of the tiled (bulk-copy) kernel, at
+    query counts ragged against its tiles of 128 / R queries and against
+    its persistent grid."""
     table, idx, w = _rows_inputs(dev, dtype, n, r, nc, nf)
     assert qg.rows_kernel(r, nc, nf, table.element_size(), True) == "tiled"
     before = obs.counters()["quad_gather_rows.launches.tiled"]
-    out = qg.quad_gather_rows(table, idx, w, nc, nf, dedup=dedup)
+    out = qg.quad_gather_rows(table, idx, w, nc, nf)
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
     assert obs.counters()["quad_gather_rows.launches.tiled"] == before + 1
@@ -324,11 +340,9 @@ def test_quad_gather_rows_tiled_kernel_matches_plain(dev, dtype, r, nc, nf,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dedup", [True, False], ids=["warp", "none"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("stream", ["one_row", "ray_runs"])
-def test_quad_gather_rows_tiled_kernel_on_repeated_rows(dev, dtype, stream,
-                                                        dedup):
+def test_quad_gather_rows_tiled_kernel_on_repeated_rows(dev, dtype, stream):
     """Every query on one row (the worst case of the deduplication: one
     distinct row a tile), and runs of neighbouring cells as along a ray."""
     n, r, nc, nf = 100_003, 4, 2, 10
@@ -339,7 +353,7 @@ def test_quad_gather_rows_tiled_kernel_on_repeated_rows(dev, dtype, stream,
         base = torch.arange(n, device=dev, dtype=torch.int32) // 13 % 4000
         idx = (base[:, None] + torch.tensor([0, 1, 64, 65], device=dev,
                                             dtype=torch.int32)).contiguous()
-    out = qg.quad_gather_rows(table, idx, w, nc, nf, dedup=dedup)
+    out = qg.quad_gather_rows(table, idx, w, nc, nf)
     ref = qg.quad_gather_rows_ref(table, idx, w, nc, nf)
     torch.cuda.synchronize()
     assert qg.error_flag(dev).item() == 0
@@ -347,23 +361,27 @@ def test_quad_gather_rows_tiled_kernel_on_repeated_rows(dev, dtype, stream,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["warp", "none", "simple"])
+@pytest.mark.parametrize("kernel", ["tiled", "simple"])
 def test_quad_gather_rows_tiled_kernel_flags_out_of_range_rows(dev, kernel):
     """A bad index in one slot of a query: the flag, NaN for that query
-    alone, in the middle of a tile and in a ragged last tile."""
+    alone, in the middle of a tile and in a ragged last tile; on the tiled
+    kernel and on the simple one (the table off 16 bytes)."""
     r, nc, nf, n = 4, 2, 10, 200
     table = torch.ones((16, nc * nf), dtype=torch.float64, device=dev)
+    if kernel == "simple":
+        table = _unaligned(table)
     idx = torch.zeros((n, r), dtype=torch.int32, device=dev)
     idx[1, r - 1] = 16
     idx[2, 0] = -1
     idx[n - 1, 1] = 2 ** 31 - 1
     w = torch.ones((n, r, nc), dtype=torch.float64, device=dev)
     flag = qg.error_flag(dev)
+    launches = f"quad_gather_rows.launches.{kernel}"
     try:
-        out = qg.quad_gather_rows(table, idx, w, nc, nf,
-                                  simple=kernel == "simple",
-                                  dedup=kernel == "warp")
+        before = obs.counters()[launches]
+        out = qg.quad_gather_rows(table, idx, w, nc, nf)
         torch.cuda.synchronize()
+        assert obs.counters()[launches] == before + 1
         assert flag.item() == 1
         bad = torch.zeros(n, dtype=torch.bool, device=dev)
         bad[[1, 2, n - 1]] = True
@@ -374,20 +392,21 @@ def test_quad_gather_rows_tiled_kernel_flags_out_of_range_rows(dev, kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["none", "simple"])
-def test_quad_gather_rows_offsets_past_int32_every_kernel(dev, kernel):
-    """As test_quad_gather_rows_offsets_past_int32 (which takes the kernel
-    the wrapper picks) for the others."""
+def test_quad_gather_rows_offsets_past_int32_every_kernel(dev):
+    """As test_quad_gather_rows_offsets_past_int32 (the tiled kernel) for
+    the simple one: the table one element past 16 bytes."""
     nc, nf = 2, 10
     ns = 2 ** 31 // (nc * nf) + 4096          # 107 M rows x 20 float32, 8.6 GB
-    table = torch.zeros((ns, nc * nf), dtype=torch.float32, device=dev)
+    flat = torch.zeros(ns * nc * nf + 1, dtype=torch.float32, device=dev)
+    table = flat[1:].view(ns, nc * nf)
     top = torch.arange(ns - 4, ns, dtype=torch.int32, device=dev)
     table[top.long()] = torch.arange(4.0, device=dev)[:, None] + 1.0
     idx = top.view(1, 4).contiguous()
     w = torch.ones((1, 4, nc), dtype=torch.float32, device=dev)
-    out = qg.quad_gather_rows(table, idx, w, nc, nf,
-                              simple=kernel == "simple", dedup=False)
+    before = obs.counters()["quad_gather_rows.launches.simple"]
+    out = qg.quad_gather_rows(table, idx, w, nc, nf)
     torch.cuda.synchronize()
+    assert obs.counters()["quad_gather_rows.launches.simple"] == before + 1
     assert qg.error_flag(dev).item() == 0
     assert (out == 2.0 * (1 + 2 + 3 + 4)).all()
 
@@ -432,8 +451,8 @@ def test_quad_gather_rows_picks_the_simple_kernel(dev, case):
 def test_quad_gather_tiled_kernel_at_the_2d_table_shapes(dev, dtype, ns, nc,
                                                          nf, n):
     """HARM, KORAL, SPHACC, NUMDISK and the per-sample-p POLSYNCHPL table
-    go to the tiled kernel, and it agrees with the plain version; the
-    generic kernel still takes them when forced."""
+    go to the tiled kernel, and it agrees with the plain version; with the
+    weights off 16 bytes the generic kernel takes them."""
     rng = np.random.default_rng(7)
     table = torch.as_tensor(rng.standard_normal((ns, nc * nf)), dtype=dtype,
                             device=dev)
@@ -449,8 +468,10 @@ def test_quad_gather_tiled_kernel_at_the_2d_table_shapes(dev, dtype, ns, nc,
     assert qg.error_flag(dev).item() == 0
     scale = ref.abs().max().item()
     assert (out - ref).abs().max().item() <= TOL[dtype] * scale
-    forced = qg.quad_gather(table, idx, w, nc, nf, generic=True)
-    assert (forced - ref).abs().max().item() <= TOL[dtype] * scale
+    generic = obs.counters()["quad_gather.launches.generic"]
+    off = qg.quad_gather(table, idx, _unaligned(w), nc, nf)
+    assert obs.counters()["quad_gather.launches.generic"] == generic + 1
+    assert (off - ref).abs().max().item() <= TOL[dtype] * scale
 
 
 def _flagship_files(tmp_path, nn=(16, 16, 64)):
@@ -542,13 +563,11 @@ BWD_SHAPES = [(None, 4, 9), (None, 2, 6), (None, 4, 6), (None, 4, 10),
 
 
 def _bwd(r):
-    """(kernel wrapper, plain twin, forcing keyword, first design's name)
-    of the weights' backward of quad_gather (r None) or quad_gather_rows."""
+    """(kernel wrapper, plain twin, first design's name) of the weights'
+    backward of quad_gather (r None) or quad_gather_rows."""
     if r is None:
-        return (qg.quad_gather_bwd_w, qg.quad_gather_bwd_w_ref, "generic",
-                "generic")
-    return (qg.quad_gather_rows_bwd_w, qg.quad_gather_rows_bwd_w_ref,
-            "simple", "simple")
+        return qg.quad_gather_bwd_w, qg.quad_gather_bwd_w_ref, "generic"
+    return qg.quad_gather_rows_bwd_w, qg.quad_gather_rows_bwd_w_ref, "simple"
 
 
 def _picked(r, nc, nf, dtype, aligned=True):
@@ -561,13 +580,15 @@ def _picked(r, nc, nf, dtype, aligned=True):
 def _check_bwd(table, idx, g, nc, nf, kernel, forced=False):
     """One launch of the backward against its twin (TOL of max|twin|,
     widened for long rows), on the kernel `kernel` by its launch count,
-    bitwise repeated from run to run.  Returns (dw, twin)."""
+    bitwise repeated from run to run; `forced`: g one element past 16
+    bytes, which the first design alone takes.  Returns (dw, twin)."""
     r = idx.shape[1] if idx.dim() == 2 else None
-    kern, twin, force, _ = _bwd(r)
-    kw = {force: True} if forced else {}
+    kern, twin, _ = _bwd(r)
+    if forced:
+        g = _unaligned(g)
     launches = f"{kern.__name__}.launches.{kernel}"
     before = obs.counters()[launches]
-    out = kern(table, idx, g, nc, nf, **kw)
+    out = kern(table, idx, g, nc, nf)
     ref = twin(table, idx, g, nc, nf)
     torch.cuda.synchronize()
     assert obs.counters()[launches] == before + 1
@@ -575,7 +596,7 @@ def _check_bwd(table, idx, g, nc, nf, kernel, forced=False):
     assert out.shape == idx.shape + (nc,) and out.dtype == table.dtype
     assert (out - ref).abs().max().item() <= TOL[table.dtype] * \
         ref.abs().max().item() * max(1.0, nf / 16)
-    assert torch.equal(out, kern(table, idx, g, nc, nf, **kw))
+    assert torch.equal(out, kern(table, idx, g, nc, nf))
     return out, ref
 
 
@@ -601,12 +622,12 @@ def test_backward_kernels_match_plain(dev, dtype, r, nc, nf, n, forced):
     """quad_gather_bwd_w (r None) and quad_gather_rows_bwd_w against their
     plain twins at every shape of the forward kernels, on the kernel the
     wrapper picks (tiled where the shape and alignment admit it) and on
-    the first design forced (generic / simple), at query counts ragged
+    the first design (generic / simple; g off 16 bytes), at query counts ragged
     against the tiles, bitwise repeated from run to run (no atomics); the
     tiled kernel equals the first design to rounding (both sum the fields
     in one order)."""
     table, idx, g = _bwd_operands(dev, dtype, r, nc, nf, n)
-    first = _bwd(r)[3]
+    first = _bwd(r)[2]
     kernel = first if forced else _picked(r, nc, nf, dtype)
     out, ref = _check_bwd(table, idx, g, nc, nf, kernel, forced)
     if not forced:
@@ -628,7 +649,7 @@ def test_backward_takes_unaligned_operands(dev, dtype, r, nc, nf):
     flat[1:] = g.reshape(-1)
     shifted = flat[1:].view(g.shape)
     assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
-    first = _bwd(r)[3]
+    first = _bwd(r)[2]
     assert _picked(r, nc, nf, dtype, aligned=False) == first
     _check_bwd(table, idx, shifted, nc, nf, first)
     if r is None:
@@ -655,7 +676,7 @@ def test_backward_on_shared_rows(dev, dtype, r, nc, nf, stream):
         q = torch.arange(idx.numel(), device=dev, dtype=torch.int64)
         idx.view(-1).copy_((q // 11 * 7 + q % 3) % 1000)
     out, ref = _check_bwd(table, idx, g, nc, nf, _picked(r, nc, nf, dtype))
-    first, _ = _check_bwd(table, idx, g, nc, nf, _bwd(r)[3], forced=True)
+    first, _ = _check_bwd(table, idx, g, nc, nf, _bwd(r)[2], forced=True)
     assert (out - first).abs().max().item() <= TOL[dtype] * \
         ref.abs().max().item()
 
@@ -677,10 +698,10 @@ def test_backward_flags_out_of_range_rows(dev, dtype, r, nc, nf, forced):
     flat[5, -1] = 300
     flat[513, 0] = -1
     flat[n - 1, 0] = 10 ** 6
-    kern, twin, force, _ = _bwd(r)
+    kern, twin, _ = _bwd(r)
     flag = qg.error_flag(dev)
     try:
-        dw = kern(table, idx, g, nc, nf, **({force: True} if forced else {}))
+        dw = kern(table, idx, _unaligned(g) if forced else g, nc, nf)
         torch.cuda.synchronize()
         assert flag.item() == 1
         good = torch.ones(n, dtype=torch.bool, device=dev)

@@ -41,6 +41,7 @@ three pixels masked whole:
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -51,6 +52,8 @@ from grtrans_tpu_torch.integrate import solvers
 from grtrans_tpu_torch.integrate.solvers import BLK
 from grtrans_tpu_torch.ops import _build
 from grtrans_tpu_torch.ops import formal_march as fm
+from grtrans_tpu_torch.ops import harmpi_invert as hi
+from grtrans_tpu_torch.ops import quad_gather as qg
 
 torch.set_num_threads(1)   # the suite runs in parallel worker processes
 
@@ -215,6 +218,33 @@ def test_the_library_is_keyed_by_source_and_flags(tmp_path, source):
     changed = tmp_path / src.name
     changed.write_bytes(src.read_bytes() + b"\n")
     assert _build.library_path(changed, fm.NVCC_FLAGS) != path
+
+
+@pytest.mark.parametrize("module", [fm, hi, qg],
+                         ids=["formal_march", "harmpi_invert", "quad_gather"])
+def test_the_signatures_match_the_sources(module):
+    """Each wrapper's ctypes table (ARGTYPES, which ops/_build.load binds)
+    against its csrc/*.cu: every entry point declared there is in the
+    table and none other, each parameter of the type the table gives it,
+    one by one.  A signature that drifted from its source would pass
+    arguments of the wrong width on the card."""
+    declared = _build.entry_points(module.SOURCE)
+    assert declared, f"no extern \"C\" entry point in {module.SOURCE.name}"
+    assert sorted(declared) == sorted(module.ARGTYPES)
+    for name, types in declared.items():
+        assert types == list(module.ARGTYPES[name]), name
+
+
+def test_load_refuses_a_drifted_signature(tmp_path):
+    """A source whose entry point lost a parameter (as quad_gather_rows_*
+    lost one) is refused before anything is built or loaded."""
+    old = tmp_path / "quad_gather.cu"
+    old.write_text(re.sub(r"(quad_gather_rows_f64\([^)]*?)void\* stream",
+                          r"\1int dedup, void* stream",
+                          qg.SOURCE.read_text(), count=1))
+    assert _build.entry_points(old) != _build.entry_points(qg.SOURCE)
+    with pytest.raises(ValueError, match="differ from the signatures"):
+        _build.load(old, qg.NVCC_FLAGS, qg.ARGTYPES)
 
 
 # ---- the card ------------------------------------------------------------

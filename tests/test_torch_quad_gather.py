@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from grtrans_tpu.emis import polsynchpl as jpl
 from grtrans_tpu.ops.pallas_gather import (quad_combine, vmem_row_gather,
                                            xla_quad_gather)
+from grtrans_tpu_torch import obs
 from grtrans_tpu_torch.emis import polsynchpl as tpl
 from grtrans_tpu_torch.ops import quad_gather as qgm
 from grtrans_tpu_torch.ops.quad_gather import (quad_gather,
@@ -93,14 +94,15 @@ def test_g_all_matches_jax(p):
 
 @pytest.mark.parametrize("nc,nf", [(4, 9), (2, 6), (3, 5), (2, 101)])
 def test_kernel_choice_does_not_change_the_cpu_result(nc, nf):
-    """`generic=True` only picks between the CUDA kernels; on the CPU both
-    spellings go to the plain version, for the tiled shapes, the wide-row
-    shape and any other."""
+    """The kernels are the card's choice alone: on the CPU the tiled
+    shapes, the wide-row shape and any other go to the plain twin, one call
+    of it a wrapper call, and equal the einsum."""
     table, idx, w = _inputs(np.float64, n=257, nc=nc, nf=nf, ns=300, seed=5)
     args = (torch.from_numpy(table), torch.from_numpy(idx),
             torch.from_numpy(w), nc, nf)
+    before = obs.counters()["quad_gather_ref.calls"]
     out = quad_gather(*args)
-    assert torch.equal(out, quad_gather(*args, generic=True))
+    assert obs.counters()["quad_gather_ref.calls"] == before + 1
     ref = np.einsum("nc,ncf->nf", w, table[idx].reshape(-1, nc, nf))
     _close(out.numpy(), ref, 1e-14)
 
@@ -177,11 +179,9 @@ ROWS_SHAPES = {
 def test_gather_kernel_choice(name):
     """The shape rule of quad_gather on the card: the tiled kernel for the
     narrow shapes in use when its 16-byte operands are aligned, the
-    wide-row kernel for nf >= 32, the generic one otherwise or when
-    forced."""
+    wide-row kernel for nf >= 32, the generic one otherwise."""
     (nc, nf), kernel = GATHER_SHAPES[name]
     assert qgm.gather_kernel(nc, nf, aligned=True) == kernel
-    assert qgm.gather_kernel(nc, nf, aligned=True, generic=True) == "generic"
     assert qgm.gather_kernel(nc, nf, aligned=False) == \
         ("wide" if kernel == "wide" else "generic")
 
@@ -191,11 +191,9 @@ def test_rows_kernel_choice(name):
     """The shape rule of quad_gather_rows on the card: the bulk-copy
     kernel where a row is a whole number of 16-byte pieces (of at most 256
     bytes) of an aligned table and (R, nc) is instantiated (not the binned
-    populations); the simple one otherwise or when forced."""
+    populations); the simple one otherwise."""
     (r, nc, nf, itemsize), kernel = ROWS_SHAPES[name]
     assert qgm.rows_kernel(r, nc, nf, itemsize, True) == kernel
-    assert qgm.rows_kernel(r, nc, nf, itemsize, True, simple=True) == \
-        "simple"
     assert qgm.rows_kernel(r, nc, nf, itemsize, False) == "simple"
 
 
@@ -203,12 +201,11 @@ def test_rows_kernel_choice(name):
 def test_bwd_kernel_choice(name):
     """The shape rule of quad_gather_bwd_w on the card: the tiled kernel
     (the forward's tile pipeline) for the tiled forward's shapes when
-    table, g and dw are aligned, the first design ("generic") otherwise or
-    when forced; no wide-row backward."""
+    table, g and dw are aligned, the first design ("generic") otherwise;
+    no wide-row backward."""
     (nc, nf), kernel = GATHER_SHAPES[name]
     want = "tiled" if kernel == "tiled" else "generic"
     assert qgm.bwd_kernel(nc, nf, aligned=True) == want
-    assert qgm.bwd_kernel(nc, nf, aligned=True, generic=True) == "generic"
     assert qgm.bwd_kernel(nc, nf, aligned=False) == "generic"
 
 
@@ -217,11 +214,9 @@ def test_rows_bwd_kernel_choice(name):
     """The shape rule of quad_gather_rows_bwd_w on the card: the forward's
     row rule (the bulk-copy pipeline where (R, nc) is instantiated and a
     row is whole 16-byte pieces of at most 256 bytes, table and g
-    aligned), the first design ("simple") otherwise or when forced."""
+    aligned), the first design ("simple") otherwise."""
     (r, nc, nf, itemsize), kernel = ROWS_SHAPES[name]
     assert qgm.rows_bwd_kernel(r, nc, nf, itemsize, True) == kernel
-    assert qgm.rows_bwd_kernel(r, nc, nf, itemsize, True, simple=True) == \
-        "simple"
     assert qgm.rows_bwd_kernel(r, nc, nf, itemsize, False) == "simple"
 
 
