@@ -5,8 +5,8 @@
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit; TF32 off;
   2. build the hand-written kernels of csrc/formal_march.cu,
-     csrc/quad_gather.cu and csrc/harmpi_invert.cu for sm_90a (ptxas's
-     registers and spills);
+     csrc/quad_gather.cu, csrc/harmpi_invert.cu and
+     csrc/render_polsynchth.cu for sm_90a (ptxas's registers and spills);
   3. hold quad_gather against its plain PyTorch version on the card at the
      main paths' shapes (FFJET 4e6 queries x (16384, 36) table in f64 and
      f32; the POLSYNCHPL cutoff table (201, 12); PHATDISK's pair-packed
@@ -188,7 +188,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      bytes over the memory rate against their operations over the unfused
      rate, the operations estimated from the source (INVERT_OPS) for the
      steps, band and branches that a replay of the frame's bisections
-     counts.
+     counts;
+ 30. the POLSYNCHTH render kernel (csrc/render_polsynchth.cu) on the
+     benchmark's HARM3D frame: the camera of the cell harm3d-incl-256-f64
+     at 256x256 x 400, lsoda, mu0 0.6, on phase 12's snapshot, float64 and
+     prec="mixed", through grtrans_run: one kernel launch a render (f64 /
+     f32) and no twin call; then render_rays on the kept operands by the
+     kernel and by its torch twin, launches and twin calls counted around
+     each, the (j, K, ok) each hands the march compared column by column
+     (RENDER_TOL of the column's max|twin|, the masks equal) and the
+     images (RENDER_IMAGE_TOL); the kernel, render_rays less the march and
+     the twin timed with CUDA events, beside the kernel's bound: its bytes
+     over the memory rate against its operations over the unfused rate,
+     the operations counted from the source by branch (RENDER_OPS) and
+     weighted by the samples a replay of the frame finds on each.
 The line before the last is a JSON object of the kernels, the float32
 instantiations of the mixed paths among them (and of the gradient and
 mixed paths; no NaN token: a non-finite number is null); the last line is
@@ -686,6 +699,288 @@ def invert_phase(dev):
     return rows
 
 
+RENDER_NN = (256, 256, 400)           # the benchmark's HARM3D frame
+# FP operations of the render kernel (csrc/render_polsynchth.cu) by the
+# branch a sample takes, counted from its source: an add, multiply,
+# compare, negation or isfinite one each; a division, reciprocal or square
+# root priced DIV, a transcendental function TRANS and pow two of them (its
+# log and exp), INVERT_OPS' prices (estimates of their software sequences,
+# not counts).  render_work counts on the frame the samples that take each
+# branch.
+POW = 2 * TRANS
+RENDER_OPS = dict(
+    valid=8,                          # u and b finite
+    head=152 + 2 * TRANS + 4 * DIV,   # metric_cov, u lowered, the
+                                      # transport's gammas, deltas, its
+                                      # denominator and f, the Kulkarni
+                                      # norms and their test
+    basis=3 * DIV,                    # f / denom
+    basis_pole=2 * DIV,               # pole-on: 1 / sqrt(g_phph)
+    framed=286 + 20 * DIV + TRANS,    # the norms' roots, the tetrad, 13
+                                      # projections, knorm and its test,
+                                      # the basis perpendicular to k, the
+                                      # angle's clamp and arccos, g, the
+                                      # finite tests, g's clamp
+    b_nonzero=6 + 5 * DIV,            # bdotb > 0: s2xi, c2xi, the cosine
+    coef=127 + 25 * DIV + 10 * TRANS + 4 * POW,   # polsynchth but bnu and
+                                      # the theta_e split (the emission
+                                      # fits, jffunc, the Faraday terms),
+                                      # coefindx, the zeroing, j g^2 lbh,
+                                      # K / g lbh
+    rotate=18,                        # rotate_emis (nvals = 4)
+    bnu=6 + DIV,                      # T > 0: x = h nu / k T, the clamps
+    bnu_rj=5,                         # x < 1e-6
+    bnu_planck=6 + TRANS + DIV,       # expm1
+    bnu_cold=1,                       # T = 0
+    rel=18 + 5 * DIV + 2 * TRANS + POW,   # theta_e > 1e-2: K2, the tanh
+                                      # step, shgmfunc, w11, w12
+    nonrel=2,
+    bessel_small=71 + 2 * TRANS + DIV,    # K0 and K1 at 1 / theta_e <= 2
+    bessel_large=36 + 2 * TRANS + 6 * DIV,
+    hor=2)                            # float32: the horizon cut
+# j, K: kernel against twin, of each column's max|twin|
+# (tests/test_torch_render_kernel.py's COEF_TOL); the image, of max|I|
+# (the march kernel's bars, MARCH_TOL)
+RENDER_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+RENDER_IMAGE_TOL = {torch.float64: 1e-12, torch.float32: 4e-5}
+
+
+def render_work(args, ok, rotate, mixed, chunk=4096):
+    """Count, on the frame of render_rays' arguments `args` and the
+    kernel's mask `ok`, the samples that take each branch of RENDER_OPS,
+    and price them.  A sample that stops inside a stage is priced as far
+    as the replay sees it go (valid; u and b finite; the tetrad's frame_ok,
+    its knorm test among them; ok), so the count is a least one: a sample
+    that stops at knorm is priced to the frame test only.  The branches
+    are read in float64 (the float32 leg's tests may fall otherwise on a
+    few samples)."""
+    import math
+
+    from grtrans_tpu_torch import constants as pc
+    from grtrans_tpu_torch.geometry import fourvector as fvec
+    from grtrans_tpu_torch.geometry import kerr, tetrad
+
+    geo, fv, ei, _, freqs, mu0, alpha, beta, a, _, _ = args
+    kap_c = a * math.sqrt(1.0 - mu0 * mu0)
+    n = collections.Counter()
+    for p0 in range(0, geo.x.shape[0], chunk):
+        s = slice(p0, p0 + chunk)
+        r, th = geo.x[s, :, 1], geo.x[s, :, 2]
+        u, b, k = fv.u[s], fv.b[s], geo.k[s]
+        te, oks = ei.tcgs[s], ok[s]
+        reach = geo.valid[s] & torch.isfinite(u).all(-1) \
+            & torch.isfinite(b).all(-1)
+        pole = ((alpha[s] + kap_c == 0.0) & (beta[s] == 0.0))[:, None]
+        u = torch.where(reach[..., None], u, 0.0)
+        b = torch.where(reach[..., None], b, 0.0)
+        _, _, _, g, _, frame_ok = tetrad.comoving_ortho(
+            r, th, a, alpha[s, None], beta[s, None], mu0, u, b, k)
+        framed = reach & frame_ok
+        bdotb = fvec.dot(kerr.metric_cov(r, th, a), b, b)
+        g = torch.where(oks, g, 1.0).clamp(1e-8, 1e8)
+        thetae = te * pc.k / (pc.m * pc.c2) + 1e-10
+        rel = oks & (thetae > 1e-2)
+        cold = oks & (te == 0.0)
+        for name, mask in (("valid", geo.valid[s]), ("reach", reach),
+                           ("pole", reach & pole), ("framed", framed),
+                           ("b_nonzero", framed & (bdotb > 0.0)),
+                           ("ok", oks), ("bnu_cold", cold), ("rel", rel),
+                           ("bessel_small", rel & (1.0 / thetae <= 2.0))):
+            n[name] += int(mask.sum())
+        for fghz in freqs:
+            x = (fghz / g) * pc.h / (te * pc.k)
+            n["bnu_rj"] += int((oks & ~cold & (x < 1e-6)).sum())
+    nf = len(freqs)
+    o = RENDER_OPS
+    ops = (n["valid"] * o["valid"]
+           + nf * (n["reach"] * o["head"]
+                   + (n["reach"] - n["pole"]) * o["basis"]
+                   + n["pole"] * o["basis_pole"]
+                   + n["framed"] * (o["framed"] + (o["hor"] if mixed else 0))
+                   + n["b_nonzero"] * o["b_nonzero"]
+                   + n["ok"] * (o["coef"] + (o["rotate"] if rotate else 0))
+                   + n["bnu_cold"] * o["bnu_cold"]
+                   + (n["ok"] - n["bnu_cold"]) * o["bnu"]
+                   + n["rel"] * o["rel"]
+                   + (n["ok"] - n["rel"]) * o["nonrel"]
+                   + n["bessel_small"] * o["bessel_small"]
+                   + (n["rel"] - n["bessel_small"]) * o["bessel_large"])
+           + n["bnu_rj"] * o["bnu_rj"]
+           + (nf * (n["ok"] - n["bnu_cold"]) - n["bnu_rj"])
+           * o["bnu_planck"])
+    total = geo.valid.numel()
+    shares = {name: v / total / (nf if name == "bnu_rj" else 1)
+              for name, v in n.items()}
+    return dict(ops=ops, ops_per_sample=ops / total / nf, samples=total,
+                shares=shares)
+
+
+def render_phase(dev):
+    """Phase 30: the POLSYNCHTH render kernel on the benchmark's HARM3D
+    frame, in float64 and in float32 (prec="mixed"): {tag: row}."""
+    from grtrans_tpu_torch import driver
+    from grtrans_tpu_torch.config import GrtransConfig
+    from grtrans_tpu_torch.fluid.base import load_fluid_model
+    from grtrans_tpu_torch.integrate import solvers
+    from grtrans_tpu_torch.ops import render_polsynchth as rp
+    from grtrans_tpu_torch.orchestrator import grtrans_run
+    from grtrans_tpu_torch.testing import grmhd_dump
+
+    # the camera of the benchmark cell harm3d-incl-256-f64 (spin, uout,
+    # mbh, field of view, 230 GHz, lsoda, gmin, muval, mdot) at mu0 0.6,
+    # the middle of its traffic, on phase 12's snapshot
+    model = load_fluid_model(
+        "HARM3D", device=dev,
+        dump=grmhd_dump.harm3d_dump(*SNAPSHOT_NX, seed=SEED))
+    base = GrtransConfig(**snapshot_kwargs(
+        "HARM3D", RENDER_NN, iname="lsoda", mbh=4e6, mumin=0.6, mumax=0.6))
+    render, march = driver.render_rays, solvers.observed_stokes
+    takes = driver._kernel_takes
+    rows = {}
+    for prec in ("f64", "mixed"):
+        cfg = dataclasses.replace(base, prec=prec)
+        mixed = prec == "mixed"
+        dtype = torch.float32 if mixed else torch.float64
+        tag = "f32" if mixed else "f64"
+        grtrans_run(cfg, model, device=dev)              # warm
+        kept = []
+
+        def keep(*args, **kw):
+            kept.append((args, kw))
+            return render(*args, **kw)
+
+        driver.render_rays = keep
+        try:
+            reset_counts()
+            grtrans_run(cfg, model, device=dev)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            driver.render_rays = render
+        if counts["render_kernel"] != 1 or counts[f"render_kernel_{tag}"] \
+                != 1 or counts["render_twin"] != 0:
+            raise AssertionError(f"HARM3D {prec} frame: "
+                                 f"{counts['render_kernel']} render kernel "
+                                 f"launches ({tag}: "
+                                 f"{counts[f'render_kernel_{tag}']}), "
+                                 f"{counts['render_twin']} twin calls (want "
+                                 "1, 1 and 0)")
+        args, kw = kept.pop()
+
+        def path(twin):
+            """render_rays on the frame by the kernel or (twin) by its
+            torch code: the image, the (j, K, ok) it hands the march and
+            the counters it moved."""
+            seen = []
+
+            def catch(lam, j, K, method="formal", mask=None, **more):
+                seen.append((j, K, mask))
+                return march(lam, j, K, method=method, mask=mask, **more)
+
+            solvers.observed_stokes = catch
+            if twin:
+                driver._kernel_takes = lambda *a: False
+            try:
+                reset_counts()
+                ivals = render(*args, **kw)
+                torch.cuda.synchronize()
+                c = read_counts()
+            finally:
+                solvers.observed_stokes = march
+                driver._kernel_takes = takes
+            return ivals, seen[0], c
+
+        ivals, (j, K, ok), c = path(False)
+        if c["render_kernel"] != 1 or c["render_twin"] != 0:
+            raise AssertionError(f"render {prec}: kernel path {c}")
+        tivals, (tj, tK, tok), c = path(True)
+        if c["render_twin"] != 1 or c["render_kernel"] != 0:
+            raise AssertionError(f"render {prec}: twin path {c}")
+        if not (j.dtype == tj.dtype == dtype and torch.equal(ok, tok)):
+            raise AssertionError(f"render {prec}: dtypes {j.dtype}, "
+                                 f"{tj.dtype}; masks equal "
+                                 f"{torch.equal(ok, tok)}")
+        cols = {}
+        for name, ours, twin in (("j", j, tj), ("K", K, tK)):
+            for col in range(twin.shape[-1]):
+                ref = twin[..., col].abs().max().item()
+                err = (ours[..., col] - twin[..., col]).abs().max().item()
+                cols[f"{name}{col}"] = err / ref if ref > 0.0 else err
+        bit_equal = ((j == tj).all(-1) & (K == tK).all(-1)).double().mean()
+        imax = tivals[..., 0].abs().max().item()
+        img_err = (ivals - tivals).abs().max().item() / imax
+        del j, K, tj, tK, tok, ivals, tivals
+
+        # times: the kernel alone on operands of its dtype, and
+        # render_rays less the march on each path
+        geo, fv, ei, _, freqs, mu0, alpha, beta, a, mbh, sp = args
+        kargs = tuple(t.to(dtype) if t.is_floating_point() else t
+                      for t in (geo.x, geo.k, geo.valid, fv.u, fv.b, alpha,
+                                beta, ei.ncgs, ei.bcgs, ei.tcgs))
+        rotate = kw.get("nvals", 4) == 4
+        kkw = dict(a=a, mu0=mu0, fghz=freqs[0], mbh=mbh,
+                   coefindx=sp.coefindx, rotate=rotate, mixed=mixed)
+
+        def kernel():
+            return rp.render_polsynchth(*kargs, **kkw)
+
+        def no_march(lam, j, K, method="formal", mask=None, **more):
+            return torch.zeros(j.shape[0], 4, dtype=j.dtype,
+                               device=j.device)
+
+        solvers.observed_stokes = no_march
+        try:
+            t = dict(kernel=cuda_ms(kernel, reps=5),
+                     render=cuda_ms(lambda: render(*args, **kw), reps=5))
+            driver._kernel_takes = lambda *a: False
+            t["twin"] = cuda_ms(lambda: render(*args, **kw), reps=1)
+        finally:
+            solvers.observed_stokes = march
+            driver._kernel_takes = takes
+        t["kernel_again"] = cuda_ms(kernel, reps=5)
+        ms = min(t["kernel"], t["kernel_again"])
+        del kargs
+
+        # the bound: x read whole (its 32-byte rows in float64, two rows a
+        # sector in float32), k, u, b, n, B, T and valid read, j, K and ok
+        # written, against the operations of the branches the frame takes
+        # over the unfused rate
+        n = ok.numel()
+        size = torch.finfo(dtype).bits // 8
+        nbytes = (n * ((4 + 12 + 3 + 11) * size + 2)
+                  + 2 * alpha.numel() * size)
+        work = render_work(args, ok, rotate, mixed)
+        ops = work["ops"] / len(freqs)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / (PEAK_FLOPS[dtype] / 2) * 1e3
+        bound = max(t_bytes, t_ops)
+        rows[tag] = dict(
+            ms=ms, plain_ms=t["twin"], bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bytes=nbytes, ops=ops, bytes_ms=t_bytes, ops_ms=t_ops,
+            share=bound / ms, bytes_share=t_bytes / ms,
+            max_rel_err=max(cols.values()), col_rel_err=cols,
+            bit_equal=bit_equal.item(), ok_share=ok.double().mean().item(),
+            image_rel_err=img_err, work=work, counts=counts, times=t)
+        print(f"render {tag} {RENDER_NN}: kernel {ms:.3f} ms "
+              f"({t['kernel']:.3f}, {t['kernel_again']:.3f}), render_rays "
+              f"less the march {t['render']:.3f} ms, twin {t['twin']:.1f} "
+              f"ms; bound {bound:.3f} ms by {rows[tag]['bound_by']} "
+              f"({nbytes / 1e9:.3f} GB: {t_bytes:.3f} ms; {ops:.4e} ops, "
+              f"{work['ops_per_sample']:.1f} a sample, counted from the "
+              f"source by branch at the frame's shares {work['shares']}: "
+              f"{t_ops:.3f} ms), share {bound / ms:.1%}; kernel vs twin "
+              f"by column {cols}, bit for bit on {bit_equal.item():.6%} of "
+              f"samples, image {img_err:.3e} of max|I|")
+        if not (max(cols.values()) <= RENDER_TOL[dtype]
+                and img_err <= RENDER_IMAGE_TOL[dtype]):
+            raise AssertionError(f"render {tag}: kernel vs twin {cols}, "
+                                 f"image {img_err}")
+        del args, kw, ok
+    del model
+    return rows
+
+
 def reset_counts():
     """Count the gather launches and twin calls from here on (the obs
     counters as they stand are the base)."""
@@ -713,7 +1008,11 @@ def read_counts():
                   march_kernel=c["march.kernel.launches"],
                   march_twin=c["march.twin.calls"],
                   invert_kernel=c["harmpi.invert.kernel.launches"],
-                  invert_twin=c["harmpi.invert.twin.calls"])
+                  invert_twin=c["harmpi.invert.twin.calls"],
+                  render_kernel=c["render.kernel.launches"],
+                  render_kernel_f64=c["render.kernel.launches.f64"],
+                  render_kernel_f32=c["render.kernel.launches.f32"],
+                  render_twin=c["render.twin.calls"])
     for name in WRAPPERS:
         counts[name] = c[f"{name}.launches"]
         for dt in ("f32", "f64"):
@@ -2775,14 +3074,16 @@ def by_path(paths, key):
 
 
 def build_phase():
-    """Phase 2: build and load csrc/formal_march.cu, csrc/quad_gather.cu and
-    csrc/harmpi_invert.cu; print ptxas's registers and spills."""
+    """Phase 2: build and load csrc/formal_march.cu, csrc/quad_gather.cu,
+    csrc/harmpi_invert.cu and csrc/render_polsynchth.cu; print ptxas's
+    registers and spills."""
     from grtrans_tpu_torch.ops import _build
     from grtrans_tpu_torch.ops import formal_march as fm
     from grtrans_tpu_torch.ops import harmpi_invert as hi
     from grtrans_tpu_torch.ops import quad_gather as qg
+    from grtrans_tpu_torch.ops import render_polsynchth as rp
 
-    for mod in (fm, qg, hi):
+    for mod in (fm, qg, hi, rp):
         t0 = time.perf_counter()
         _build.load(mod.SOURCE, mod.NVCC_FLAGS, mod.ARGTYPES)
         so = _build.library_path(mod.SOURCE, mod.NVCC_FLAGS)
@@ -2885,6 +3186,9 @@ def run(dev):
     # 29. HARMPI's inversion kernels
     invert = invert_phase(dev)
     invert64 = invert["f64"]
+    # 30. the POLSYNCHTH render kernel
+    render = render_phase(dev)
+    render64 = render["f64"]
 
     main = shapes["ffjet f64"]
     wide = shapes["phatdisk f64"]
@@ -2980,7 +3284,19 @@ def run(dev):
         "ms": invert64["ms"], "plain_ms": invert64["plain_ms"],
         "bound_ms": invert64["bound_ms"], "bound_by": invert64["bound_by"],
         "shapes": {f"harmpi 256x256x400 bl3 {tag}": row
-                   for tag, row in invert.items()}}],
+                   for tag, row in invert.items()}}, {
+        "name": "render_polsynchth", "route": "cuda",
+        "source": "grtrans_tpu_torch/csrc/render_polsynchth.cu",
+        "replaces": "grtrans_tpu/driver.py:149",
+        "launches": sum(by_path(paths, "render_kernel").values())
+        + sum(row["counts"]["render_kernel"] for row in render.values()),
+        "launches_by_path": by_path(paths, "render_kernel"),
+        "twin_calls_by_path": by_path(paths, "render_twin"),
+        "max_abs_err": render64["max_rel_err"], "ms": render64["ms"],
+        "plain_ms": render64["plain_ms"], "bound_ms": render64["bound_ms"],
+        "bound_by": render64["bound_by"],
+        "shapes": {"harm3d {}x{}x{} lsoda {}".format(*RENDER_NN, tag): row
+                   for tag, row in render.items()}}],
         "gradient_paths": {"fwdbwd_ffjet": fwdbwd,
                            "grad_harm3d": grad_harm3d,
                            "emitter_observer": emitter},

@@ -19,12 +19,8 @@ from grtrans_tpu_torch.emis.chandra import interp_chandra
 from grtrans_tpu_torch.fluid.base import apply_source_params
 from grtrans_tpu_torch.geometry import kerr, tetrad
 from grtrans_tpu_torch.integrate import solvers
+from grtrans_tpu_torch.ops import render_polsynchth as rp
 from grtrans_tpu_torch.ops.interp import get_weight
-
-
-# prec="mixed": samples closer than this (relative) to the outer horizon
-# are left out of the float32 leg (render_rays)
-HOR_F32 = 1e-4
 
 
 def calc_emissivity(ename, nu, ei, ang, cosne, sp, gmin=None):
@@ -139,6 +135,65 @@ def _extra_channels(geo, fv, ei, j, K, prof, ok):
     return torch.stack(out, dim=-1)
 
 
+def _observe(geo, fv, ei, j, K, ok, iname, nvals, extra, profile):
+    """(res, prof) of one frequency of a ray-integrating render from its
+    rotated, scaled coefficients j (npix, npts, 4), K (npix, npts, 7) and
+    mask ok: res the observer's Stokes (npix, nvals), with the 19 extra
+    channels appended for extra=1; prof the Stokes profile where extra or
+    `profile` asks for it, else None (the march keeps the observer's row
+    only)."""
+    if not (extra or profile):
+        return solvers.observed_stokes(geo.lam, j, K, method=iname,
+                                       mask=ok)[..., :nvals], None
+    prof = solvers.integrate(geo.lam, j, K, method=iname, mask=ok)
+    res = prof[..., 0, :nvals]
+    if extra:
+        res = torch.cat(
+            [res, _extra_channels(geo, fv, ei, j, K, prof, ok)], dim=-1)
+    return res, prof
+
+
+def _on_card(*tensors):
+    """Whether every tensor lies on a CUDA device."""
+    return all(t.is_cuda for t in tensors)
+
+
+def _kernel_takes(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh,
+                  single, debug, prec):
+    """Whether render_rays takes the POLSYNCHTH coefficient kernel: the
+    emissivity POLSYNCHTH on a ray-integrating render (not `single`), no
+    debug dump, operands on the card with no gradient recorded through
+    them, the spin, mu0, mbh and frequencies numbers, and float64 operands
+    or prec="mixed"."""
+    ts = (geo.x, geo.k, fv.u, fv.b, alpha, beta, ei.ncgs, ei.bcgs, ei.tcgs)
+    return (ename.upper() == "POLSYNCHTH" and not single and not debug
+            and not any(torch.is_tensor(v) for v in (a, mu0, mbh, *freqs))
+            and _on_card(*ts) and not solvers._needs_grad(*ts)
+            and (prec == "mixed"
+                 or all(t.dtype == torch.float64 for t in ts)))
+
+
+def _render_kernel(geo, fv, ei, freqs, mu0, alpha, beta, a, mbh, sp, iname,
+                   nvals, extra, mixed):
+    """render_rays on the kernel's path: each frequency's j, K and ok from
+    one launch of ops/render_polsynchth (the float32 kernel for mixed),
+    then the march; no sync.  POLSYNCHTH reads neither ncgsnth nor gmin,
+    so apply_source_params is left out; the extra channels read ei in the
+    render's dtype, as the twin hands it to them."""
+    if extra and mixed:
+        ei = type(ei)(*(v.float() if torch.is_tensor(v) else v for v in ei))
+    out = []
+    for fghz in freqs:
+        j, K, ok = rp.render_polsynchth(
+            geo.x, geo.k, geo.valid, fv.u, fv.b, alpha, beta, ei.ncgs,
+            ei.bcgs, ei.tcgs, a=a, mu0=mu0, fghz=fghz, mbh=mbh,
+            coefindx=sp.coefindx, rotate=nvals == 4, mixed=mixed)
+        out.append(_observe(geo, fv, ei, j, K, ok, iname, nvals, extra,
+                            False)[0])
+    ivals = torch.stack(out, dim=0)
+    return ivals.double() if mixed else ivals
+
+
 @obs.spanned("render")
 def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
                 iname="lsoda", nvals=4, standard=1, extra=0, debug=False,
@@ -160,9 +215,21 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
     affine parameter handed to the march in float64 (the march forms the
     Faraday phase in float64 and reduces it mod 2 pi before its float32
     trig); the image comes back float64.  Single-point renders (standard=2
-    or one point a ray) stay float64."""
+    or one point a ray) stay float64.
+
+    On the card, a POLSYNCHTH ray-integrating render with no gradient
+    recorded and no debug dump, in float64 or mixed, takes each
+    frequency's coefficients from one kernel launch (_render_kernel); every
+    other call takes the torch code below, the kernel's twin.  obs counts
+    "render.kernel.launches" (one a frequency) and "render.twin.calls"
+    (one a call)."""
     single = standard == 2 or geo.x.shape[-2] == 1
     mixed = prec == "mixed" and not single
+    if _kernel_takes(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh,
+                     single, debug, prec):
+        return _render_kernel(geo, fv, ei, freqs, mu0, alpha, beta, a, mbh,
+                              sp, iname, nvals, extra, mixed)
+    obs.count("render.twin.calls")
     r = geo.x[..., 1]
     th = geo.x[..., 2]
     # sanitize the fluid four-vectors before the tetrad projection
@@ -191,7 +258,7 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
         # redshift; in float64 g -> 0 there and the sample emits nothing,
         # so the float32 leg leaves out the samples within HOR_F32 r+
         rh = kerr.horizon(a)
-        ok = ok & (r - rh > HOR_F32 * rh)
+        ok = ok & (r - rh > rp.HOR_F32 * rh)
     s2xi = torch.where(ok, s2xi, 0.0)
     c2xi = torch.where(ok, c2xi, 1.0)
     ang = torch.where(ok, ang, math.pi / 2.0)
@@ -247,7 +314,7 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
             j = framework.invariant_intensity(j, g, 3)
             j = torch.where(ok[..., None], j, 0.0)
             j = torch.where(torch.isfinite(j), j, 0.0)
-            Iobs = j[..., -1, :]
+            res = j[..., -1, :nvals]
         else:
             if nvals == 4:
                 j, K = framework.rotate_emis(j, K, s2xi, c2xi)
@@ -255,18 +322,8 @@ def render_rays(geo, fv, ei, ename, freqs, mu0, alpha, beta, a, mbh, sp,
             # cgs per unit geometric path (grtrans_driver.f90:217,228)
             j = j * lbh
             K = K * lbh
-            if extra or debug:
-                prof = solvers.integrate(geo.lam, j, K, method=iname,
-                                         mask=ok)
-                Iobs = prof[..., 0, :]
-            else:
-                # the observer's row only
-                Iobs = solvers.observed_stokes(geo.lam, j, K, method=iname,
-                                               mask=ok)
-        res = Iobs[..., :nvals]
-        if extra and not single:
-            res = torch.cat(
-                [res, _extra_channels(geo, fv, ei, j, K, prof, ok)], dim=-1)
+            res, prof = _observe(geo, fv, ei, j, K, ok, iname, nvals, extra,
+                                 debug)
         if debug:
             dbg[f"nu_{kf}"] = nu
             dbg[f"j_{kf}"] = j

@@ -54,6 +54,7 @@ from grtrans_tpu_torch.ops import _build
 from grtrans_tpu_torch.ops import formal_march as fm
 from grtrans_tpu_torch.ops import harmpi_invert as hi
 from grtrans_tpu_torch.ops import quad_gather as qg
+from grtrans_tpu_torch.ops import render_polsynchth as rp
 
 torch.set_num_threads(1)   # the suite runs in parallel worker processes
 
@@ -220,8 +221,9 @@ def test_the_library_is_keyed_by_source_and_flags(tmp_path, source):
     assert _build.library_path(changed, fm.NVCC_FLAGS) != path
 
 
-@pytest.mark.parametrize("module", [fm, hi, qg],
-                         ids=["formal_march", "harmpi_invert", "quad_gather"])
+@pytest.mark.parametrize("module", [fm, hi, qg, rp],
+                         ids=["formal_march", "harmpi_invert", "quad_gather",
+                              "render_polsynchth"])
 def test_the_signatures_match_the_sources(module):
     """Each wrapper's ctypes table (ARGTYPES, which ops/_build.load binds)
     against its csrc/*.cu: every entry point declared there is in the

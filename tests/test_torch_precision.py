@@ -13,7 +13,8 @@ float64; the image float64.
 One rule is the port's own: a plunging ray's last sample lies 1e-6 r+
 outside the horizon, where float32 holds r - r+ to a few percent and the
 projection onto the fluid frame gives any redshift; the float32 leg leaves
-out the samples within driver.HOR_F32 = 1e-4 r+ of the horizon.
+out the samples within ops.render_polsynchth.HOR_F32 = 1e-4 r+ of the
+horizon.
 grtrans_tpu keeps them, and on the SARIAF render below one pixel then
 differs from the float64 image by 1.08e-2 of max|I| (measured, in
 grtrans_tpu as in the port without the rule).  So the render tests hold
@@ -34,13 +35,13 @@ from grtrans_tpu.geodesics import camera as jcam
 from grtrans_tpu.geodesics import geokerr as jgeo
 from grtrans_tpu.integrate import solvers as jsol
 from grtrans_tpu.orchestrator import grtrans_run as jrun
-from grtrans_tpu_torch import driver
 from grtrans_tpu_torch.config import GrtransConfig
 from grtrans_tpu_torch.fluid.base import load_fluid_model as tload
 from grtrans_tpu_torch.geodesics import camera as tcam
 from grtrans_tpu_torch.geodesics import geokerr as tgeo
 from grtrans_tpu_torch.integrate import solvers as tsol
 from grtrans_tpu_torch.ops import quad_gather as qg
+from grtrans_tpu_torch.ops import render_polsynchth as rp
 from grtrans_tpu_torch.orchestrator import grtrans_run
 from grtrans_tpu_torch.testing import grmhd_dump
 from grtrans_tpu_torch.testing.ffjet_dump import write_ffjet_dump
@@ -73,7 +74,7 @@ def _jax_with_horizon_rule(monkeypatch):
             a = args[0]
             rh = 1.0 + np.sqrt(1.0 - a * a)
             g = g._replace(valid=g.valid & (g.x[..., 1] - rh
-                                            > driver.HOR_F32 * rh))
+                                            > rp.HOR_F32 * rh))
         return g
 
     monkeypatch.setattr(jgeo, "trace", ruled)
